@@ -1,0 +1,4 @@
+from .scene import Scene
+from .worm import generate_liquid_box_scene
+
+__all__ = ["Scene", "generate_liquid_box_scene"]
