@@ -1,10 +1,10 @@
 """Command-line interface (counterpart of ``sph_tpu/cli.py``).
 
-    python -m sph_tpu_torch run --scene box [--box 30,20,250] [--fill 0.15]
-        --steps N [--engine auto|fastw] [--device cuda|cpu]
+    python -m sph_tpu_torch run --scene worm|box [--box 30,20,250]
+        [--fill 0.15] --steps N [--engine auto|fastw] [--device cuda|cpu]
 
 prints the same scene and timing lines as ``python -m sph_tpu run``. Only
-the ``run`` subcommand on the generated liquid box is ported so far.
+the ``run`` subcommand on the generated scenes is ported so far.
 """
 from __future__ import annotations
 
@@ -26,11 +26,14 @@ def _make_params(args):
 
 def cmd_run(args) -> int:
     from .runtime import Simulator
-    from .scene import generate_liquid_box_scene
+    from .scene import generate_liquid_box_scene, generate_worm_scene
 
     params = _make_params(args)
     t0 = time.time()
-    scene = generate_liquid_box_scene(params, fill_fraction=args.fill)
+    if args.scene == "worm":
+        scene = generate_worm_scene(params)
+    else:
+        scene = generate_liquid_box_scene(params, fill_fraction=args.fill)
     print(f"scene: {scene.counts} ({time.time() - t0:.1f}s)")
 
     fck = ({"resort_every": args.resort_every}
@@ -55,9 +58,10 @@ def main(argv=None) -> int:
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("run", help="simulate")
-    p.add_argument("--scene", default="box", choices=["box"],
-                   help="box = generated pure-liquid box (the worm scene "
-                        "is not ported yet)")
+    p.add_argument("--scene", default="worm", choices=["worm", "box"],
+                   help="worm = the worm in its pool (elastic shell, "
+                        "membranes, muscles); box = generated pure-liquid "
+                        "box")
     p.add_argument("--box", default=None,
                    help="world box in h units, e.g. '30,20,250'")
     p.add_argument("--fill", type=float, default=0.15,

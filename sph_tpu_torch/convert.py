@@ -12,7 +12,7 @@ import torch
 
 from .config import SimParams
 from .constants import MUSCLE_COUNT
-from .core.state import FluidState
+from .core.state import FluidState, Membranes, Springs
 
 
 def params_from(jax_params) -> SimParams:
@@ -41,3 +41,23 @@ def state_from_numpy(pos, vel, ptype, normal, muscle_activation=None,
         step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
                           device=device),
     )
+
+
+def springs_from_numpy(row_ids, idx, rest, muscle, device="cpu") -> Springs:
+    """A Springs table from plain numpy arrays (``sph_tpu``'s ``Springs``
+    fields, copied onto ``device``)."""
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return Springs(row_ids=t(row_ids, torch.int32), idx=t(idx, torch.int32),
+                   rest=t(rest, torch.float32),
+                   muscle=t(muscle, torch.int32))
+
+
+def membranes_from_numpy(tris, particle_tris, device="cpu") -> Membranes:
+    """A Membranes mesh from plain numpy arrays (``sph_tpu``'s ``Membranes``
+    fields, copied onto ``device``)."""
+    def t(a):
+        return torch.as_tensor(np.array(a), dtype=torch.int32, device=device)
+
+    return Membranes(tris=t(tris), particle_tris=t(particle_tris))

@@ -2,8 +2,8 @@
 
 Counterpart of the parts of ``sph_tpu/core/fast.py`` that the wall-compact
 engine reuses: :class:`FastConfig`, ``_window_tables`` (without the
-subgroup tables), ``_pad_field`` and ``_pack``. The fast engine itself is
-ROADMAP Queue 1 item 7.
+subgroup tables), ``_tile_chunks``, ``_pad_field`` and ``_pack``. The fast
+engine itself is ROADMAP Queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -106,6 +106,33 @@ def _window_tables(pencil_s, cfg: FastConfig):
     )
     pencil_ranges = (torch.stack(plos, 1), torch.stack(phis, 1))
     return tables, pstart, pencil_ranges
+
+
+def _tile_chunks(lo, hi, n_blocks, ccol):
+    """Per-block chunk descriptors (aln, s0, cnt) from flattened [nb*3]
+    lo/hi column ranges, deduplicated in tile space (each block's tiles are
+    disjoint and cover every in-range column exactly once: the
+    maskless-kernel invariant). lo/hi must be nondecreasing per block."""
+    i32 = torch.int32
+    lo3 = lo.reshape(n_blocks, 3).to(i32)
+    hi3 = hi.reshape(n_blocks, 3).to(i32)
+    alns, nsubs = [], []
+    prev_tend = torch.zeros(n_blocks, dtype=i32, device=lo.device)
+    for c in range(3):
+        aligned = torch.maximum(
+            torch.div(lo3[:, c], ALIGN, rounding_mode="floor") * ALIGN,
+            prev_tend)
+        # ceil((hi - aligned) / ccol): the negated operand must floor
+        nsub = torch.where(
+            hi3[:, c] > aligned,
+            -torch.div(aligned - hi3[:, c], ccol, rounding_mode="floor"), 0)
+        prev_tend = aligned + nsub * ccol
+        alns.append(aligned)
+        nsubs.append(nsub)
+    nsub = torch.stack(nsubs, 1)
+    s0 = (torch.cumsum(nsub, dim=1, dtype=i32) - nsub).reshape(-1)
+    return (torch.stack(alns, 1).reshape(-1).contiguous(), s0.contiguous(),
+            nsub.sum(dim=1, dtype=i32))
 
 
 def _pad_field(a, cfg: FastConfig, fill=0.0):

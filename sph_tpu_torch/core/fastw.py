@@ -7,7 +7,7 @@ live, with its rho/rho*/p recomputed each step from a shell-rows x
 moving-columns pass plus a static wall-wall constant; moving rows take their
 wall contributions from compact shell-column passes; deep walls vanish from
 the step. Same pair set, stage order and physics as the JAX engine; the
-four pair passes run through ``ops.pair_kernels`` (Hopper kernels on CUDA,
+six pair passes run through ``ops.pair_kernels`` (Hopper kernels on CUDA,
 plain versions on CPU).
 
 Differences from the JAX module:
@@ -16,8 +16,12 @@ Differences from the JAX module:
 * the wall sort and wall-wall density sums always come from
   :func:`precompute_wall_static` (the in-graph ``raw_sw`` wall path of the
   JAX module is not ported);
-* scenes with springs, membranes or the muscle model raise
-  ``NotImplementedError``: that is the worm slice, ROADMAP Queue 1.
+* the spring and membrane slab packs are buffers of the sort context: their
+  static rows (partner ids, rest lengths, pad columns) are written once per
+  resort, the position, activation and triangle rows in place every step;
+* the per-spring activation term is a gather ``act_ext[muscle id]`` instead
+  of the one-hot matrix product: the same f32 values, no matmul precision
+  mode involved.
 """
 from __future__ import annotations
 
@@ -29,16 +33,14 @@ import torch
 import torch.nn.functional as TF
 
 from ..config import SimParams
-from ..constants import BOUNDARY_PARTICLE
+from ..constants import BOUNDARY_PARTICLE, LIQUID_PARTICLE, MUSCLE_COUNT
+from ..models import muscle
 from ..ops import pair_kernels as pk
 from .state import FluidState, Membranes, Springs
 from .step import SceneLayout
 from . import fast as F
 
 ALIGN = pk.ALIGN
-
-_WORM_TODO = ("springs, membranes and the muscle model of the fastw engine "
-              "are not ported yet (ROADMAP Queue 1: the worm slice)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -308,6 +310,9 @@ class StepParts:
     inner_step: Callable
     unsort_state: Callable
     passes: dict
+    # density(state, springs, membranes) -> [n] time-t density of the moving
+    # particles from the engine's own rho* sums (walls: NaN)
+    density: Callable
 
 
 def _make_step_parts_w(params: SimParams, layout: SceneLayout,
@@ -318,8 +323,10 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
     step, deep walls absent. ``wall_static`` is the
     :func:`precompute_wall_static` result (required when the scene has
     walls)."""
-    if layout.muscle_model:
-        raise NotImplementedError(_WORM_TODO)
+    if layout.n_elastic > 0 and not layout.springs_elastic_only:
+        raise ValueError(
+            "fastw requires elastic-only spring anchors (wall rows are not "
+            "addressable in the moving-compact sorted space)")
     if cfg.n_wall > 0 and wall_static is None:
         raise ValueError("a scene with walls needs wall_static="
                          "precompute_wall_static(...)")
@@ -350,7 +357,15 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
                                     **kw),
         bnd_ms=pk.make_boundary_pass(r0=f32(params.r0), ccol=ccol_c,
                                      n_blocks=nb_m, **kw),
+        mem_ms=pk.make_membrane_pass(r0=f32(params.r0), ccol=ccol_c,
+                                     n_blocks=nb_m, **kw),
+        spring_ms=pk.make_spring_pass(
+            inv_h=inv_h, h_scale=f32(params.h * params.simulation_scale),
+            k_spring=f32(params.k_spring), n_slots=layout.spring_slots,
+            ccol=ccol_c, n_blocks=nb_m, **kw),
     )
+    n_slots = layout.spring_slots
+    muscle_force = float(f32(params.muscle_force))
 
     n = layout.n_particles
     n_mov, n_wall = cfg.n_mov, cfg.n_wall
@@ -388,14 +403,13 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
         return pencil, cy + ny * pencil
 
     def sort_ctx(state: FluidState, springs: Springs, membranes: Membranes):
-        if springs.n_elastic > 0 or membranes.n_tris > 0:
-            raise NotImplementedError(_WORM_TODO)
         pm = state.pos[mov_ids]
         pencil_m, cid_m = _cells(pm[:, 0], pm[:, 1], pm[:, 2])
         order = torch.argsort(cid_m, stable=True)
         orig_of_sorted = mov_ids[order]             # [n_mov] original ids
         pencil_ms = pencil_m[order]
-        tables_m, pstart_m, _ = F._window_tables(pencil_ms, cfg.mov_cfg())
+        tables_m, pstart_m, pranges = F._window_tables(pencil_ms,
+                                                       cfg.mov_cfg())
         bidx = torch.arange(nb_m, dtype=torch.int32, device=dev)
         first_m = pencil_ms[torch.clamp(bidx * B, max=n_mov - 1).long()]
         last_m = pencil_ms[
@@ -407,9 +421,14 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
             tile_overflow=_table_overflow(tables_m, ccol, nb_m),
             shell_overflow=torch.zeros((), dtype=torch.int32, device=dev),
         )
-        if n_wall == 0:
-            return ctx, diag
+        if n_wall > 0:
+            _sort_shell(ctx, diag, cid_m, pstart_m, first_m, last_m, bidx)
+        if springs.n_elastic > 0 or membranes.n_tris > 0:
+            _sort_elastic(ctx, state, springs, membranes, orig_of_sorted,
+                          pencil_ms, pranges)
+        return ctx, diag
 
+    def _sort_shell(ctx, diag, cid_m, pstart_m, first_m, last_m, bidx):
         # ---- shell selection over the presorted walls ----
         ws = wall_static
         cap = cfg.shell_cap
@@ -473,7 +492,92 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
             + _table_overflow(ctx["tables_ms"], ccol_c, nb_m)
             + _table_overflow(ctx["tables_sm"], ccol, nb_s)
         )
-        return ctx, diag
+
+    def _sort_elastic(ctx, state, springs, membranes, orig_of_sorted,
+                      pencil_ms, pranges):
+        """The compact elastic slab (springs + membranes): elastic columns
+        in sorted order, their tile tables per own block, and the slab
+        packs' static rows."""
+        i64 = torch.int64
+        e0, e1 = layout.elastic_range
+        n_el = e1 - e0
+        # original id -> moving sorted row (walls stay -1)
+        inv_m = torch.full((n,), -1, dtype=i64, device=dev)
+        inv_m[orig_of_sorted] = torch.arange(n_mov, device=dev)
+        liq_s = _pad_to(
+            (state.ptype[orig_of_sorted] == LIQUID_PARTICLE).to(
+                torch.float32), cfg.n_alloc)
+        ctx["liq_s"] = liq_s
+        el_rows = inv_m[e0:e1]
+        perm = torch.argsort(el_rows)
+        els = el_rows[perm]
+        ctx["els"] = els
+        tables_m = ctx["tables_m"]
+        lo_t, hi_t, ob_t = tables_m[1], tables_m[2], tables_m[5]
+        lo_c = torch.searchsorted(els, lo_t.to(i64), right=False,
+                                  out_int32=True)
+        hi_c = torch.searchsorted(els, hi_t.to(i64), right=False,
+                                  out_int32=True)
+        aln_c, s0_c, cnt_c = F._tile_chunks(lo_c, hi_c, nb_m, ccol_c)
+        mcap = -(-n_el // ALIGN) * ALIGN + ccol_c
+        zero_cnt = torch.zeros_like(cnt_c)
+
+        if springs.n_elastic > 0:
+            rmap = torch.full((n,), -1, dtype=i64, device=dev)
+            rmap[springs.row_ids.long()] = torch.arange(springs.n_elastic,
+                                                        device=dev)
+            r_of_col = rmap[e0:e1][perm]
+            has_row = (r_of_col >= 0)[:, None]
+            r_safe = torch.clamp(r_of_col, min=0)
+            # every -1 (pad slot, column without a row) is clamped before it
+            # indexes, then masked
+            sidx = torch.where(has_row,
+                               springs.idx[r_safe, :n_slots].long(), -1)
+            used = sidx >= 0
+            idx_f = torch.where(
+                used, inv_m[torch.clamp(sidx, min=0)].to(torch.float32),
+                -1.0)
+            rest_c = torch.where(used, springs.rest[r_safe, :n_slots], 0.0)
+            mid = torch.where(used, springs.muscle[r_safe, :n_slots].long(),
+                              0)
+            # muscle ids outside 1..MUSCLE_COUNT drive nothing
+            mid = torch.where((mid >= 1) & (mid <= MUSCLE_COUNT), mid, 0)
+            ctx["spr_mid"] = mid.T.contiguous()          # [n_slots, n_el]
+            pack = torch.zeros((pk.spr_cols(n_slots), mcap),
+                               dtype=torch.float32, device=dev)
+            pack[:3] = far
+            pack[3:3 + n_slots] = -1.0
+            pack[3:3 + n_slots, :n_el] = idx_f.T
+            pack[3 + n_slots:3 + 2 * n_slots, :n_el] = rest_c.T
+            ctx["spr_pack"] = pack
+            own_el = torch.zeros(cfg.n_pad, dtype=torch.bool, device=dev)
+            own_el[els] = True
+            own_el = own_el.reshape(nb_m, B).any(dim=1)
+            ctx["spr_tables"] = (
+                aln_c, lo_c, hi_c, s0_c,
+                torch.where(own_el, cnt_c, zero_cnt), ob_t)
+
+        if membranes.n_tris > 0:
+            pt = membranes.particle_tris[e0:e1].long()   # [n_el, 7]
+            ctx["mem_vidx"] = inv_m[membranes.tris.long()]
+            ptp = pt[perm]
+            ctx["mem_pt_ok"] = (ptp >= 0).reshape(-1, 1)
+            ctx["mem_pt_safe"] = torch.clamp(ptp, min=0).reshape(-1)
+            has_mem_m = torch.zeros(n_mov, dtype=torch.float32, device=dev)
+            has_mem_m[el_rows] = (pt >= 0).any(dim=1).to(torch.float32)
+            seg = torch.zeros(npen, dtype=torch.float32, device=dev)
+            seg.index_add_(0, pencil_ms.long(), has_mem_m)
+            csum = torch.cat([seg.new_zeros(1), torch.cumsum(seg, 0)])
+            plo_r, phi_r = pranges
+            chunk_mem = (csum[phi_r.long()] - csum[plo_r.long()]).sum(1) > 0
+            own_liq = liq_s[:cfg.n_pad].reshape(nb_m, B).max(dim=1)[0] > 0
+            ctx["mem_tables"] = (
+                aln_c, lo_c, hi_c, s0_c,
+                torch.where(chunk_mem & own_liq, cnt_c, zero_cnt), ob_t)
+            pack = torch.zeros((pk.MEM_COLS, mcap), dtype=torch.float32,
+                               device=dev)
+            pack[6 * pk.MEM_TRIS:] = far
+            ctx["mem_pack"] = pack
 
     def carry_of(ctx, state: FluidState):
         src = ctx["orig_of_sorted"]
@@ -491,6 +595,29 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
 
     have_walls = n_wall > 0
 
+    def _density(ctx, pos_pack):
+        """(rho of the moving rows [n_pad], rho of the shell rows or None)
+        from the three raw rho* passes at the packed positions."""
+        tables_m = ctx["tables_m"]
+        s_mm = passes["raw_mm"](tables_m, pos_pack, pos_pack)
+        if not have_walls:
+            return c_rho * torch.clamp((s_mm - self3) * inv_h6, min=1.0), None
+        shp = ctx["shell_pos_pack"]
+        s_mw = passes["raw_ms"](ctx["tables_ms"], pos_pack, shp)
+        rho_m = c_rho * torch.clamp((s_mm - self3 + s_mw) * inv_h6, min=1.0)
+        s_sm = passes["raw_sm"](ctx["tables_sm"], shp, pos_pack)
+        rho_sh = c_rho * torch.clamp((s_sm + ctx["ww_const"]) * inv_h6,
+                                     min=1.0)
+        return rho_m, rho_sh
+
+    def density(state: FluidState, springs: Springs, membranes: Membranes):
+        ctx, _ = sort_ctx(state, springs, membranes)
+        xs, ys, zs = carry_of(ctx, state)[:3]
+        rho_m, _ = _density(ctx, F._pack([xs, ys, zs]))
+        rho = torch.full((n,), float("nan"), dtype=torch.float32, device=dev)
+        rho[ctx["orig_of_sorted"]] = rho_m[:n_mov]
+        return rho
+
     def inner_step(ctx, carry):
         xs, ys, zs, vxs, vys, vzs, act, step_no, drift = carry
         tables_m = ctx["tables_m"]
@@ -498,18 +625,7 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
                                   passes["raw_sm"])
 
         # ---- density (moving + shell-wall rows) ----
-        pos_pack = F._pack([xs, ys, zs])
-        s_mm = raw_mm(tables_m, pos_pack, pos_pack)
-        if have_walls:
-            shp = ctx["shell_pos_pack"]
-            s_mw = raw_ms(ctx["tables_ms"], pos_pack, shp)
-            rho_m = c_rho * torch.clamp((s_mm - self3 + s_mw) * inv_h6,
-                                        min=1.0)
-            s_sm = raw_sm(ctx["tables_sm"], shp, pos_pack)
-            rho_sh = c_rho * torch.clamp((s_sm + ctx["ww_const"]) * inv_h6,
-                                         min=1.0)
-        else:
-            rho_m = c_rho * torch.clamp((s_mm - self3) * inv_h6, min=1.0)
+        rho_m, rho_sh = _density(ctx, F._pack([xs, ys, zs]))
         inv_rho_m = 1.0 / rho_m                      # [n_pad]
 
         # ---- external forces (viscosity + surface tension) ----
@@ -532,6 +648,21 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
         aex = c_visc * vx * inv_rho_m + c_surf * stx + gx
         aey = c_visc * vy * inv_rho_m + c_surf * sty + gy
         aez = c_visc * vz * inv_rho_m + c_surf * stz + gz
+
+        # ---- elastic + muscle forces ----
+        if "spr_pack" in ctx:
+            els = ctx["els"]
+            n_el = els.shape[0]
+            spr_pack = ctx["spr_pack"]
+            spr_pack[:3, :n_el] = main1[:3][:, els]
+            # per-spring activation term: muscle id 0 (plain spring) -> 0
+            act_ext = torch.cat([act.new_zeros(1), act * muscle_force])
+            spr_pack[3 + 2 * n_slots:, :n_el] = act_ext[ctx["spr_mid"]]
+            sfx, sfy, sfz = passes["spring_ms"](ctx["spr_tables"], main1,
+                                                spr_pack)
+            aex = aex + sfx
+            aey = aey + sfy
+            aez = aez + sfz
 
         # ---- PCISPH prediction-correction ----
         zeros = torch.zeros(cfg.n_pad, dtype=torch.float32, device=dev)
@@ -602,12 +733,13 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
         vaz = (own_vz + vnz) * 0.5
 
         # ---- Ihmsen boundary response (shell columns) ----
-        if have_walls:
+        if have_walls or "mem_pack" in ctx:
             own_pack = F._pack(
                 [xs, ys, zs, _pad_to(xn, cfg.n_alloc, far),
                  _pad_to(yn, cfg.n_alloc, far),
                  _pad_to(zn, cfg.n_alloc, far)],
             )
+        if have_walls:
             ncx, ncy, ncz, wsum, w2sum = passes["bnd_ms"](
                 ctx["tables_ms"], own_pack, ctx["bnd_pack"])
             nlen2 = ncx * ncx + ncy * ncy + ncz * ncz
@@ -627,6 +759,39 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
             vay = torch.where(fric, (vay - ncy * vn_dot) * 0.99, vay)
             vaz = torch.where(fric, (vaz - ncz * vn_dot) * 0.99, vaz)
 
+        # ---- membranes ----
+        if "mem_pack" in ctx:
+            els = ctx["els"]
+            n_el = els.shape[0]
+            vidx = ctx["mem_vidx"]
+            xyz_n = torch.stack([xn, yn, zn], dim=1)      # [n_pad, 3]
+            vabc = xyz_n[vidx.reshape(-1)].reshape(-1, 3, 3)
+            a3 = vabc[:, 0]
+            tn = torch.linalg.cross(vabc[:, 1] - a3, vabc[:, 2] - a3)
+            tl2 = (tn * tn).sum(dim=1, keepdim=True)
+            til = torch.where(
+                tl2 > 0, torch.rsqrt(torch.clamp(tl2, min=1e-30)), 0.0)
+            tri6 = torch.cat([tn * til, a3], dim=1)       # [n_tri, 6]
+            g = torch.where(ctx["mem_pt_ok"], tri6[ctx["mem_pt_safe"]], 0.0)
+            mem_pack = ctx["mem_pack"]
+            mem_pack[:6 * pk.MEM_TRIS, :n_el] = g.reshape(
+                n_el, 6 * pk.MEM_TRIS).T
+            mem_pack[6 * pk.MEM_TRIS:, :n_el] = torch.stack(
+                [xn, yn, zn, own_x, own_y, own_z])[:, els]
+            mnx, mny, mnz, mws, mw2 = passes["mem_ms"](
+                ctx["mem_tables"], own_pack, mem_pack)
+            ml2 = mnx * mnx + mny * mny + mnz * mnz
+            mhas = (ml2 > 0) & (ctx["liq_s"][:cfg.n_pad] > 0)
+            mcoef = torch.where(
+                mhas,
+                torch.rsqrt(torch.clamp(ml2, min=1e-30))
+                * mw2 / torch.clamp(mws, min=1e-30),
+                0.0,
+            )
+            xn = xn + mnx * mcoef
+            yn = yn + mny * mcoef
+            zn = zn + mnz * mcoef
+
         # pad rows stay pinned at `far` with zero velocity
         xn = torch.where(pad_mask, own_x, xn)
         yn = torch.where(pad_mask, own_y, yn)
@@ -634,6 +799,9 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
         vax = torch.where(pad_mask, 0.0, vax)
         vay = torch.where(pad_mask, 0.0, vay)
         vaz = torch.where(pad_mask, 0.0, vaz)
+
+        if layout.muscle_model:
+            act = muscle.next_activation(step_no)
 
         d2 = ((xn - own_x) * (xn - own_x)
               + (yn - own_y) * (yn - own_y)
@@ -660,14 +828,18 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
             muscle_activation=act, step=step_no,
         )
 
-    return StepParts(sort_ctx, carry_of, inner_step, unsort_state, passes)
+    return StepParts(sort_ctx, carry_of, inner_step, unsort_state, passes,
+                     density)
 
 
 def record_step_inputs(parts: StepParts, state: FluidState, springs: Springs,
-                       membranes: Membranes) -> dict:
+                       membranes: Membranes, ctx_out: dict | None = None
+                       ) -> dict:
     """name -> (PairPass, tables, own_pack, slab_pack) of the last call of
     each pair pass in one sort + one step from ``state`` (the stepped state
-    is discarded; ``parts.passes`` is restored)."""
+    is discarded; ``parts.passes`` is restored). ``ctx_out``, when given,
+    receives the sort context (e.g. ``liq_s``, the liquid flag of the sorted
+    rows: the membrane sums are used on liquid rows only)."""
     calls = {}
     passes = dict(parts.passes)
     for name, p in passes.items():
@@ -677,6 +849,8 @@ def record_step_inputs(parts: StepParts, state: FluidState, springs: Springs,
         parts.passes[name] = rec
     try:
         ctx, _ = parts.sort_ctx(state, springs, membranes)
+        if ctx_out is not None:
+            ctx_out.update(ctx)
         parts.inner_step(ctx, parts.carry_of(ctx, state))
     finally:
         parts.passes.update(passes)

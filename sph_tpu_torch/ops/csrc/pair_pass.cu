@@ -1,11 +1,13 @@
 // Blocked all-pairs passes of the wall-compact (fastw) engine, for Hopper.
 //
 // Replaces the Pallas TPU driver sph_tpu/ops/pair_kernels.py:_make_pass and
-// four of its tile functions:
+// six of its tile functions:
 //   RhoStar  <- sph_tpu/ops/pair_kernels.py:make_rho_star_pass (raw sums)
 //   ViscSurf <- sph_tpu/ops/pair_kernels.py:make_viscsurf_pass
 //   PAccel   <- sph_tpu/ops/pair_kernels.py:make_paccel_pass
 //   Boundary <- sph_tpu/ops/pair_kernels.py:make_boundary_pass
+//   Spring   <- sph_tpu/ops/pair_kernels.py:make_spring_pass
+//   Membrane <- sph_tpu/ops/pair_kernels.py:make_membrane_pass
 // The plain PyTorch versions in sph_tpu_torch/ops/pair_kernels.py compute
 // the same sums and are what the kernels are checked against.
 //
@@ -16,7 +18,7 @@
 // c = 3b + (s >= s0[3b+1]) + (s >= s0[3b+2]), column
 // aln[c] + (s - s0[c]) * ccol) with no static caps, so no tile is dropped.
 // Each tile's slab rows x ccol f32 are staged in shared memory by the whole
-// CTA (coalesced rows, at most 7 x 512 x 4 B = 14 KB), then every thread
+// CTA (coalesced rows; sizes below), then every thread
 // loops over the tile's columns with f32 register accumulators; the
 // shared-memory reads are warp broadcasts. Reductions are direct f32 sums:
 // the TPU's bf16-split MXU dots, identity-matmul transposes, group-of-8
@@ -26,10 +28,25 @@
 // and pad columns sit at `far`. Tile columns beyond the slab width are
 // skipped, own rows beyond the own width write zeros.
 //
-// What bounds it on this card: pair arithmetic. A moving row meets ~1.6k
-// candidate columns per pass (~20-30 flops each); slab bytes are reused
-// from shared memory by all 256 rows of the block, so device-memory traffic
-// is small. The loads of a tile are not overlapped with the compute of the
+// Shared memory per CTA = slab rows x ccol x 4 B, one tile, dynamic. The
+// four liquid passes stage 3-7 rows (at most 7 x 512 x 4 B = 14 KB).
+// Membrane stages 45 of its pack's 48 rows (the x(t) rows are not read):
+// 45 x 256 x 4 B = 46,080 B, under the 48 KB default. Spring stages
+// 3 + 3 * n_slots rows, a scene property passed at run time: 51 rows x 256
+// x 4 B = 52,224 B at 16 slots (the worm), 101,376 B at 32; above 48 KB the
+// launcher opts in with cudaFuncAttributeMaxDynamicSharedMemorySize (the
+// card allows 227 KB a CTA).
+//
+// What bounds it on this card: pair arithmetic, for all six. A moving row
+// meets ~1.6k candidate columns per liquid pass (~13-29 flops each); slab
+// bytes are reused from shared memory by all 256 rows of the block, so
+// device-memory traffic is small. Spring compares the own row's sorted id
+// with each column's n_slots partner ids (4 operations a slot, ~90 a pair
+// at 16 slots); it sums only matching pairs, which are rare, so its time is
+// the id compares. Membrane tests the distance first (10 flops a pair) and
+// runs the 7-triangle side test (~170 flops) only within r0 of the column,
+// where the weight is nonzero: the sums are unchanged, every skipped term
+// is w = 0. The loads of a tile are not overlapped with the compute of the
 // previous one (no cp.async/TMA double buffering), and no per-warp tile skip
 // is applied; both are later work.
 //
@@ -42,7 +59,8 @@
 namespace {
 
 struct RhoStar {
-  static constexpr int kSlabRows = 3;  // predicted x, y, z
+  // slab rows: predicted x, y, z
+  __host__ __device__ constexpr int slab_rows() const { return 3; }
   struct Own { float x, y, z; };
   struct Acc { float s; };
   float h2;
@@ -65,7 +83,8 @@ struct RhoStar {
 };
 
 struct ViscSurf {
-  static constexpr int kSlabRows = 7;  // x, y, z, vx, vy, vz, 1/rho
+  // slab rows: x, y, z, vx, vy, vz, 1/rho
+  __host__ __device__ constexpr int slab_rows() const { return 7; }
   struct Own { float x, y, z, vx, vy, vz; };
   struct Acc { float vx, vy, vz, sx, sy, sz; };
   float h, h2, inv_h;
@@ -102,7 +121,8 @@ struct ViscSurf {
 };
 
 struct PAccel {
-  static constexpr int kSlabRows = 5;  // x, y, z, 1/rho*, p
+  // slab rows: x, y, z, 1/rho*, p
+  __host__ __device__ constexpr int slab_rows() const { return 5; }
   struct Own { float x, y, z, p; };
   struct Acc { float x, y, z; };
   float h, h4, rho0_delta, out_c;
@@ -138,7 +158,8 @@ struct PAccel {
 };
 
 struct Boundary {
-  static constexpr int kSlabRows = 7;  // x, y, z, nx, ny, nz, is_boundary
+  // slab rows: x, y, z, nx, ny, nz, is_boundary
+  __host__ __device__ constexpr int slab_rows() const { return 7; }
   struct Own { float x, y, z; };       // post-integrate positions
   struct Acc { float nx, ny, nz, w, w2; };
   float r0, inv_r0;
@@ -169,6 +190,105 @@ struct Boundary {
   }
 };
 
+struct Spring {
+  // slab rows: x, y, z, then n_slots partner ids (sorted row ids as f32, -1
+  // pad), n_slots rest lengths (m), n_slots activation force terms
+  __host__ __device__ int slab_rows() const { return 3 + 3 * n_slots; }
+  struct Own { float x, y, z, gid; };
+  struct Acc { float x, y, z; };
+  float inv_h, inv_h_sq, h_scale, k_spring;
+  int n_slots;
+
+  // i is the own row's sorted id (its column in the own pack)
+  __device__ Own load(const float* own, long long w, long long i) const {
+    return {own[i], own[w + i], own[2 * w + i], (float)i};
+  }
+  __device__ void pair(const Own& o, const float* t, int ccol, int j,
+                       Acc& a) const {
+    float msum = 0.0f, rest = 0.0f, actf = 0.0f;
+    const float* ids = t + 3 * ccol + j;
+    const int n = n_slots;
+    for (int s = 0; s < n; ++s) {
+      if (ids[s * ccol] == o.gid) {  // a partner listed twice counts twice
+        msum += 1.0f;
+        rest += ids[(n + s) * ccol];
+        actf += ids[(2 * n + s) * ccol];
+      }
+    }
+    if (!(msum > 0.0f)) return;
+    const float dx = o.x - t[j];
+    const float dy = o.y - t[ccol + j];
+    const float dz = o.z - t[2 * ccol + j];
+    const float q2 = (dx * dx + dy * dy + dz * dz) * inv_h_sq;
+    if (!(q2 > 0.0f)) return;
+    const float inv_q = rsqrtf(fmaxf(q2, 1e-30f));
+    const float r_m = q2 * inv_q * h_scale;  // r in meters
+    const float coef = -(r_m * msum - rest) * k_spring - actf;
+    const float w = coef * inv_q * inv_h;
+    a.x += w * dx;
+    a.y += w * dy;
+    a.z += w * dz;
+  }
+  __device__ void store(float* out, long long n, long long i,
+                        const Acc& a) const {
+    out[i] = a.x;
+    out[n + i] = a.y;
+    out[2 * n + i] = a.z;
+  }
+};
+
+struct Membrane {
+  // slab rows: 7 x (unit normal, vertex) at 6t..6t+5, then x(t+1) at 42-44
+  __host__ __device__ constexpr int slab_rows() const { return 45; }
+  struct Own { float x, y, z; };       // post-integrate positions
+  struct Acc { float nx, ny, nz, w, w2; };
+  float r0;
+
+  __device__ Own load(const float* own, long long w, long long i) const {
+    return {own[3 * w + i], own[4 * w + i], own[5 * w + i]};
+  }
+  __device__ void pair(const Own& o, const float* t, int ccol, int j,
+                       Acc& a) const {
+    const float dx = o.x - t[42 * ccol + j];
+    const float dy = o.y - t[43 * ccol + j];
+    const float dz = o.z - t[44 * ccol + j];
+    const float d = r0 - sqrtf(dx * dx + dy * dy + dz * dz);
+    // beyond r0 the weight is 0 and every term of the five sums with it
+    if (!(d > 0.0f)) return;
+    float cnt = 0.0f, vx = 0.0f, vy = 0.0f, vz = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 7; ++k) {
+      const float* q = t + 6 * k * ccol + j;
+      const float nx = q[0], ny = q[ccol], nz = q[2 * ccol];
+      const float s = (o.x - q[3 * ccol]) * nx + (o.y - q[4 * ccol]) * ny
+                      + (o.z - q[5 * ccol]) * nz;
+      if (nx * nx + ny * ny + nz * nz > 0.0f && s != 0.0f) {
+        const float sgn = s > 0.0f ? 1.0f : -1.0f;
+        cnt += 1.0f;
+        vx += sgn * nx;
+        vy += sgn * ny;
+        vz += sgn * nz;
+      }
+    }
+    if (!(cnt > 0.0f)) return;  // a column without a triangle
+    const float w = fmaxf(0.0f, d / r0);
+    const float wc = w * (1.0f / fmaxf(cnt, 1.0f));
+    a.nx += wc * vx;
+    a.ny += wc * vy;
+    a.nz += wc * vz;
+    a.w += w;
+    a.w2 += w * d;
+  }
+  __device__ void store(float* out, long long n, long long i,
+                        const Acc& a) const {
+    out[i] = a.nx;
+    out[n + i] = a.ny;
+    out[2 * n + i] = a.nz;
+    out[3 * n + i] = a.w;
+    out[4 * n + i] = a.w2;
+  }
+};
+
 template <class P>
 __global__ void __launch_bounds__(1024)
 pair_pass(P p, const float* __restrict__ own, long long own_w,
@@ -176,7 +296,7 @@ pair_pass(P p, const float* __restrict__ own, long long own_w,
           const int* __restrict__ aln, const int* __restrict__ s0,
           const int* __restrict__ cnt, const int* __restrict__ ob,
           float* __restrict__ out, int ccol) {
-  extern __shared__ float tile[];  // [kSlabRows][ccol]
+  extern __shared__ float tile[];  // [slab_rows][ccol]
   const int b = blockIdx.x;
   const int nthr = blockDim.x;
   const int tid = threadIdx.x;
@@ -187,6 +307,7 @@ pair_pass(P p, const float* __restrict__ own, long long own_w,
   const typename P::Own o = p.load(own, own_w, live ? row : 0);
   typename P::Acc acc{};
 
+  const int n_rows = p.slab_rows();
   const int n_s = cnt[b];
   const int s1 = s0[3 * b + 1];
   const int s2 = s0[3 * b + 2];
@@ -197,7 +318,7 @@ pair_pass(P p, const float* __restrict__ own, long long own_w,
     if (off < 0) avail = 0;
     const int ncol = (int)(avail < ccol ? (avail > 0 ? avail : 0) : ccol);
     __syncthreads();  // the previous tile is consumed
-    for (int r = 0; r < P::kSlabRows; ++r) {
+    for (int r = 0; r < n_rows; ++r) {
       const float* src = slab + (long long)r * slab_w + off;
       for (int j = tid; j < ncol; j += nthr) tile[r * ccol + j] = src[j];
     }
@@ -217,8 +338,9 @@ int launch(const P& p, const float* own, long long own_w, const float* slab,
            const int* ob, float* out, int n_blocks, int block, int ccol,
            void* stream) {
   if (n_blocks <= 0) return (int)cudaGetLastError();
-  const size_t smem = sizeof(float) * P::kSlabRows * (size_t)ccol;
-  if (smem > 48 * 1024) {
+  const size_t smem = sizeof(float) * p.slab_rows() * (size_t)ccol;
+  if (smem > 48 * 1024) {  // opt in on every such launch: the grant is per
+                           // device, and the call is cheap beside a launch
     cudaError_t e = cudaFuncSetAttribute(
         pair_pass<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
@@ -235,7 +357,7 @@ int launch(const P& p, const float* own, long long own_w, const float* slab,
   const float *own, long long own_w, const float *slab, long long slab_w,  \
       const int *aln, const int *s0, const int *cnt, const int *ob,        \
       float *out, int n_blocks, int block, int ccol, float c0, float c1,   \
-      float c2, float c3, void *stream
+      float c2, float c3, int i0, void *stream
 #define SPH_PAIR_FWD \
   own, own_w, slab, slab_w, aln, s0, cnt, ob, out, n_blocks, block, ccol, stream
 
@@ -255,6 +377,14 @@ int sph_pair_paccel(SPH_PAIR_ARGS) {
 
 int sph_pair_boundary(SPH_PAIR_ARGS) {
   return launch(Boundary{c0, c1}, SPH_PAIR_FWD);
+}
+
+int sph_pair_spring(SPH_PAIR_ARGS) {
+  return launch(Spring{c0, c1, c2, c3, i0}, SPH_PAIR_FWD);
+}
+
+int sph_pair_membrane(SPH_PAIR_ARGS) {
+  return launch(Membrane{c0}, SPH_PAIR_FWD);
 }
 
 const char* sph_cuda_error_string(int err) {

@@ -1,9 +1,10 @@
 """Blocked all-pairs passes of the wall-compact engine: Hopper kernels and
 their plain PyTorch versions.
 
-Counterpart of ``sph_tpu/ops/pair_kernels.py`` for the four passes the
-fastw step runs on a scene without elastic matter (rho*, viscosity/surface,
-pressure force, boundary). The contract is the JAX one:
+Counterpart of ``sph_tpu/ops/pair_kernels.py`` for the six passes the
+fastw step runs (rho*, viscosity/surface, pressure force, boundary, and on
+scenes with elastic matter spring and membrane). The contract is the JAX
+one:
 
 * particles are cell-sorted; an own block is ``block`` consecutive rows;
 * ``tables`` is the 6-tuple ``(aln, lo, hi, s0, cnt, ob)`` of int32 chunk
@@ -53,12 +54,34 @@ BND_COLS = 7
 # own pack for the post-integrate passes: [x_t, y_t, z_t, xn, yn, zn]
 OWN_COLS = 6
 
-# kind -> (n_outputs, own pack rows, slab pack rows) the pass reads
+# membrane pack columns: 7 triangles x (unit normal, reference vertex) at
+# rows 6t..6t+5 (zeros when absent), then x(t+1) and x(t) of the column
+MEM_COLS = 48
+PMM_XN, PMM_YN, PMM_ZN = 42, 43, 44
+PMM_XT, PMM_YT, PMM_ZT = 45, 46, 47
+MEM_TRIS = 7
+
+# spring pack rows: 0-2 elastic positions, then n_slots partner sorted row
+# ids (f32, -1 pad), n_slots rest lengths (m), n_slots activation force
+# terms. n_slots is the scene's measured max spring degree
+# (``SceneLayout.spring_slots``).
+SPR_IDX0 = 3
+
+
+def spr_cols(n_slots: int) -> int:
+    return 3 + 3 * n_slots
+
+
+# kind -> (n_outputs, own pack rows, slab pack rows) the pass reads; the
+# spring pass's slab rows depend on its slot count (see ``_rows``). The
+# membrane pass reads no x(t) row of the slab.
 _SPECS = {
     "rho_star": (1, ITER_COLS, ITER_COLS),
     "viscsurf": (6, PM_VEZ + 1, PM_RHO + 1),
     "paccel": (3, PACC_COLS, PACC_COLS),
     "boundary": (5, OWN_COLS, BND_COLS),
+    "spring": (3, 3, None),
+    "membrane": (5, OWN_COLS, PMM_ZN + 1),
 }
 
 # kind -> output indices grouped by quantity (the components of one vector
@@ -69,14 +92,18 @@ OUTPUT_GROUPS = {
     "viscsurf": ((0, 1, 2), (3, 4, 5)),
     "paccel": ((0, 1, 2),),
     "boundary": ((0, 1, 2), (3,), (4,)),
+    "spring": ((0, 1, 2),),
+    "membrane": ((0, 1, 2), (3,), (4,)),
 }
 
 # Kernel launches per kind (plain ints, reset by callers that count a run).
 LAUNCHES = {kind: 0 for kind in _SPECS}
 
 # Pair elements ([rows x columns]) per chunk of blocks in the plain
-# versions: bounds the gathered pair matrices to ~64 MB per temporary.
-_PLAIN_PAIRS = 1 << 24
+# versions, by device type. On the card a chunk's pair matrices may take
+# ~64 MB per temporary (few, large launches); on the CPU 2 MB, so that the
+# dozen temporaries of a chunk stay in cache (5x faster there than 64 MB).
+_PLAIN_PAIRS = {"cuda": 1 << 24, "cpu": 1 << 19}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,17 +111,29 @@ class PairPass:
     """One configured pair pass: ``call(tables, own_pack, slab_pack)``.
 
     ``consts`` are the pass's f32 constants in the kernel's argument order
-    (see ``csrc/pair_pass.cu``)."""
+    (see ``csrc/pair_pass.cu``); ``n_slots`` is its one integer constant
+    (the spring pass's partner slots, 0 elsewhere)."""
 
     kind: str
     block: int
     ccol: int
     n_blocks: int
     consts: tuple[float, ...]
+    n_slots: int = 0
 
     @property
     def n_pad(self) -> int:
         return self.n_blocks * self.block
+
+    @property
+    def slab_rows(self) -> int:
+        """Slab pack rows the pass reads (and the kernel stages)."""
+        return _rows(self)[2]
+
+    @property
+    def shared_bytes(self) -> int:
+        """Dynamic shared memory of one kernel launch: one staged tile."""
+        return 4 * self.slab_rows * self.ccol
 
     def __call__(self, tables, own_pack, slab_pack):
         dev = own_pack.device.type
@@ -110,10 +149,26 @@ class PairPass:
         out = _plain(self, tables, own_pack, slab_pack)
         return out[0] if len(out) == 1 else tuple(out)
 
+    def rounding_scale(self, tables, own_pack, slab_pack):
+        """Per row and output, the magnitude the f32 rounding of this pass's
+        sum scales with: sum_j |term_ij|, where a factor (c - r)^n that
+        vanishes at its cutoff c (h, h^2, h/4, r0) counts as c (c - r)^(n-1),
+        since an f32 c - r is off by ulps of c however small it is. Two
+        correct f32 evaluations of the pass differ by a few ulps of it."""
+        out = _plain(self, tables, own_pack, slab_pack, scale=True)
+        return out[0] if len(out) == 1 else tuple(out)
+
     def kernel(self, tables, own_pack, slab_pack):
         """Launch the CUDA kernel on the current stream."""
         out = _launch(self, tables, own_pack, slab_pack)
         return out[0] if len(out) == 1 else tuple(out)
+
+
+def _rows(p: PairPass) -> tuple[int, int, int]:
+    n_out, own_rows, slab_rows = _SPECS[p.kind]
+    if p.kind == "spring":
+        slab_rows = spr_cols(p.n_slots)
+    return n_out, own_rows, slab_rows
 
 
 def _f32(x) -> float:
@@ -176,51 +231,153 @@ def make_boundary_pass(*, block, ccol, n_blocks, r0, **_):
                     (float(r0), float(inv_r0)))
 
 
+def make_spring_pass(*, block, ccol, n_blocks, inv_h, h_scale, k_spring,
+                     n_slots=32, **_):
+    """Elastic + muscle spring forces as a pair pass over the compact
+    elastic slab. The slab lists each elastic column j's spring partners as
+    sorted row ids; a pair (own i, column j) matches once per slot of j that
+    holds i (msum; the graph is symmetric). With q2 = r^2 / h^2,
+    r_m = q2 * rsqrt(max(q2, 1e-30)) * h_scale (meters) and the matched
+    slots' summed rest lengths and activation terms,
+    coef = -(r_m * msum - sum rest) * k_spring - sum actf, and the outputs
+    are sum_j coef * rsqrt(q2) / h * (x_i - x_j) over pairs with msum > 0 and
+    q2 > 0: accelerations in scaled SI units. No radius cutoff: a spring is
+    included whenever its partner column lies in the block's tiles.
+
+    Own pack: positions at rows 0-2 (the main pack). Slab: ``spr_cols``
+    rows. Row ids are compared as f32, exact below 2^24 rows."""
+    if n_blocks * block + ccol >= 1 << 24:
+        raise ValueError(
+            f"spring pass: {n_blocks * block} own rows do not compare "
+            "exactly as f32 ids (limit 2^24)")
+    if n_slots < 1:
+        raise ValueError(f"spring pass: n_slots {n_slots} < 1")
+    inv_h = np.float32(inv_h)
+    return PairPass("spring", block, ccol, n_blocks,
+                    (float(inv_h), float(inv_h * inv_h), _f32(h_scale),
+                     _f32(k_spring)), n_slots=int(n_slots))
+
+
+def make_membrane_pass(*, block, ccol, n_blocks, r0, **_):
+    """Membrane interaction sums. Per pair (own i, elastic column j) and
+    each of j's 7 triangle slots t with unit normal n_t and vertex a_t:
+    s_t = n_t . (x_new,i - a_t), counted when |n_t|^2 > 0 and s_t != 0;
+    v = sum sign(s_t) n_t, cnt = the number counted. With
+    d = |x_new,i - x_new,j| and w = max(0, (r0 - d) / r0) where cnt > 0
+    (else 0), the outputs are sum (w / cnt) v (3), sum w, sum w (r0 - d).
+
+    Own pack cols [x_t, y_t, z_t, xn, yn, zn]; slab = membrane pack
+    (``MEM_COLS`` rows; columns without a triangle carry all-zero normals).
+    Blocks without liquid near a membrane have their tile count zeroed by
+    the caller, which also masks the correction to liquid rows."""
+    return PairPass("membrane", block, ccol, n_blocks, (_f32(r0),))
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def _rho_star_pairs(c, o, s, valid):
-    (h2,) = c
+# Each function below returns the pass's per-row sums over the pair axis.
+# With ``scale`` it returns their rounding scale instead (see
+# ``PairPass.rounding_scale``): absolute terms, cutoff factors uncancelled.
+
+def _sum(term, scale):
+    return term.abs().sum(-1) if scale else term.sum(-1)
+
+
+def _rho_star_pairs(p, o, s, valid, gid, scale):
+    (h2,) = p.consts
     dx, dy, dz = o[0] - s[0], o[1] - s[1], o[2] - s[2]
     t = torch.clamp(h2 - (dx * dx + dy * dy + dz * dz), min=0.0)
-    return [torch.where(valid, t * t * t, 0.0).sum(-1)]
+    return [torch.where(valid, t * t * (h2 if scale else t), 0.0).sum(-1)]
 
 
-def _viscsurf_pairs(c, o, s, valid):
-    h, h2, inv_h = c
+def _viscsurf_pairs(p, o, s, valid, gid, scale):
+    h, h2, inv_h = p.consts
     dx, dy, dz = o[0] - s[0], o[1] - s[1], o[2] - s[2]
     r2 = dx * dx + dy * dy + dz * dz
     t = torch.clamp(h - torch.sqrt(r2), min=0.0)
+    if scale:
+        t = torch.where(t > 0.0, h, 0.0)
     wv = torch.where(valid, t * s[PM_RHO], 0.0)
     ws = (valid & (r2 < h2)).to(torch.float32)
-    return [(wv * (s[PM_VEX + k] - o[PM_VEX + k])).sum(-1) * inv_h
-            for k in range(3)] + [(ws * d).sum(-1) for d in (dx, dy, dz)]
+    return [_sum(wv * (s[PM_VEX + k] - o[PM_VEX + k]), scale) * inv_h
+            for k in range(3)] + [_sum(ws * d, scale) for d in (dx, dy, dz)]
 
 
-def _paccel_pairs(c, o, s, valid):
-    h, h4, rho0_delta, out_c = c
+def _paccel_pairs(p, o, s, valid, gid, scale):
+    h, h4, rho0_delta, out_c = p.consts
     dx, dy, dz = o[0] - s[0], o[1] - s[1], o[2] - s[2]
     r2 = dx * dx + dy * dy + dz * dz
     inv_r = torch.rsqrt(torch.clamp(r2, min=1e-30))
     r = r2 * inv_r
     t = torch.clamp(h - r, min=0.0)
-    far = t * t * (o[4] + s[4])
+    far = t * (h if scale else t) * (o[4] + s[4])
     cm = h4 - r
-    close = cm * cm * rho0_delta
+    close = cm * (h4 if scale else cm) * rho0_delta
     term = torch.where(cm > 0.0, close, far) * s[3]
     w = torch.where(valid & (r2 > 0.0), term * inv_r, 0.0)
-    return [(w * d).sum(-1) * out_c for d in (dx, dy, dz)]
+    return [_sum(w * d, scale) * out_c for d in (dx, dy, dz)]
 
 
-def _boundary_pairs(c, o, s, valid):
-    r0, inv_r0 = c
+def _boundary_pairs(p, o, s, valid, gid, scale):
+    r0, inv_r0 = p.consts
     dnx, dny, dnz = o[3] - s[PB_X], o[4] - s[PB_Y], o[5] - s[PB_Z]
     dist = torch.sqrt(dnx * dnx + dny * dny + dnz * dnz)
-    w = torch.clamp((r0 - dist) * inv_r0, min=0.0) * s[PB_ISB]
-    w = torch.where(valid, w, 0.0)
-    return [(w * s[PB_NX + k]).sum(-1) for k in range(3)] + [
-        w.sum(-1), (w * (r0 - dist)).sum(-1)]
+    w = torch.clamp((r0 - dist) * inv_r0, min=0.0)
+    if scale:
+        w = torch.where(w > 0.0, 1.0, 0.0)
+    w = torch.where(valid, w * s[PB_ISB], 0.0)
+    return [_sum(w * s[PB_NX + k], scale) for k in range(3)] + [
+        _sum(w, scale), _sum(w * (r0 - dist), scale)]
+
+
+def _spring_pairs(p, o, s, valid, gid, scale):
+    inv_h, inv_h_sq, h_scale, k_spring = p.consts
+    n = p.n_slots
+    dx, dy, dz = o[0] - s[0], o[1] - s[1], o[2] - s[2]
+    q2 = (dx * dx + dy * dy + dz * dz) * inv_h_sq
+    msum = torch.zeros_like(q2)
+    rest = torch.zeros_like(q2)
+    actf = torch.zeros_like(q2)
+    for k in range(n):
+        m = (s[SPR_IDX0 + k] == gid).to(q2.dtype)
+        msum = msum + m
+        rest = rest + m * s[SPR_IDX0 + n + k]
+        actf = actf + m * s[SPR_IDX0 + 2 * n + k]
+    inv_q = torch.rsqrt(torch.clamp(q2, min=1e-30))
+    r_m = q2 * inv_q * h_scale
+    if scale:                    # r - rest cancels too: ulps of the lengths
+        coef = (r_m * msum + rest.abs()) * k_spring + actf.abs()
+    else:
+        coef = -(r_m * msum - rest) * k_spring - actf
+    ok = valid & (msum > 0.0) & (q2 > 0.0)
+    w = torch.where(ok, coef * inv_q * inv_h, 0.0)
+    return [_sum(w * d, scale) for d in (dx, dy, dz)]
+
+
+def _membrane_pairs(p, o, s, valid, gid, scale):
+    (r0,) = p.consts
+    xn, yn, zn = o[3], o[4], o[5]
+    cnt = vx = vy = vz = 0.0
+    for t in range(MEM_TRIS):
+        ntx, nty, ntz = s[6 * t], s[6 * t + 1], s[6 * t + 2]
+        side = ((xn - s[6 * t + 3]) * ntx + (yn - s[6 * t + 4]) * nty
+                + (zn - s[6 * t + 5]) * ntz)
+        has = (ntx * ntx + nty * nty + ntz * ntz > 0.0) & (side != 0.0)
+        sgn = torch.where(has, torch.sign(side), 0.0)
+        cnt = cnt + sgn.abs()
+        vx, vy, vz = vx + sgn * ntx, vy + sgn * nty, vz + sgn * ntz
+    inv_cnt = 1.0 / torch.clamp(cnt, min=1.0)
+    dnx, dny, dnz = xn - s[PMM_XN], yn - s[PMM_YN], zn - s[PMM_ZN]
+    dist = torch.sqrt(dnx * dnx + dny * dny + dnz * dnz)
+    w = torch.clamp((r0 - dist) / r0, min=0.0)
+    if scale:
+        w = torch.where(w > 0.0, 1.0, 0.0)
+    w = torch.where(valid & (cnt > 0.0), w, 0.0)
+    wc = w * inv_cnt
+    return [_sum(wc * v, scale) for v in (vx, vy, vz)] + [
+        _sum(w, scale), _sum(w * (r0 - dist), scale)]
 
 
 _PAIRS = {
@@ -228,6 +385,8 @@ _PAIRS = {
     "viscsurf": _viscsurf_pairs,
     "paccel": _paccel_pairs,
     "boundary": _boundary_pairs,
+    "spring": _spring_pairs,
+    "membrane": _membrane_pairs,
 }
 
 
@@ -249,11 +408,11 @@ def _tile_columns(tables, ccol, blocks, n_tiles, width):
     return cols, valid.reshape(nb, -1)
 
 
-def _plain(p: PairPass, tables, own, slab):
+def _plain(p: PairPass, tables, own, slab, scale=False):
     """Sum over each block's tiles: pair matrices gathered per chunk of
     blocks (blocks without tiles skipped), with none of the TPU driver's
-    static tile caps."""
-    n_out, own_rows, slab_rows = _SPECS[p.kind]
+    static tile caps. ``scale``: the sums' rounding scale instead."""
+    n_out, own_rows, slab_rows = _rows(p)
     B = p.block
     dev = own.device
     out = torch.zeros((n_out, p.n_blocks, B), dtype=own.dtype, device=dev)
@@ -267,13 +426,14 @@ def _plain(p: PairPass, tables, own, slab):
     own = own[:own_rows]
     slab = slab[:slab_rows]
     pairs = _PAIRS[p.kind]
+    budget = _PLAIN_PAIRS[dev.type]
     i = 0
     while i < len(counts):
         # blocks sorted by tile count: grow the chunk while its widest
         # (last) block keeps the gathered pair matrices within budget
         j = i + 1
         while (j < len(counts) and (j + 1 - i) * B * counts[j] * p.ccol
-               <= _PLAIN_PAIRS):
+               <= budget):
             j += 1
         blocks = active[i:j]
         cols, valid = _tile_columns(tables, p.ccol, blocks, counts[j - 1],
@@ -282,7 +442,8 @@ def _plain(p: PairPass, tables, own, slab):
         live = (rows >= 0) & (rows < own_w)
         o = own[:, torch.where(live, rows, 0)][..., None]   # [k, nb, B, 1]
         s = slab[:, cols][:, :, None, :]                    # [k, nb, 1, C]
-        res = pairs(p.consts, o, s, valid[:, None, :])
+        gid = rows.to(own.dtype)[..., None]                 # [nb, B, 1]
+        res = pairs(p, o, s, valid[:, None, :], gid, scale)
         for k, r in enumerate(res):
             out[k, blocks] = torch.where(live, r, 0.0)
         i = j
@@ -294,7 +455,7 @@ def _plain(p: PairPass, tables, own, slab):
 # ---------------------------------------------------------------------------
 
 def _check(p: PairPass, tables, own, slab):
-    n_out, own_rows, slab_rows = _SPECS[p.kind]
+    n_out, own_rows, slab_rows = _rows(p)
     dev = own.device
     if len(tables) != 6:
         raise ValueError(f"{p.kind}: expected the 6-tuple tables, "
@@ -331,7 +492,7 @@ def _launch(p: PairPass, tables, own, slab):
 
     _check(p, tables, own, slab)
     lib = _build.load()
-    n_out = _SPECS[p.kind][0]
+    n_out = _rows(p)[0]
     out = torch.empty((n_out, p.n_pad), dtype=torch.float32,
                       device=own.device)
     aln, _, _, s0, cnt, ob = tables
@@ -341,7 +502,8 @@ def _launch(p: PairPass, tables, own, slab):
         err = getattr(lib, "sph_pair_" + p.kind)(
             own.data_ptr(), own.shape[1], slab.data_ptr(), slab.shape[1],
             aln.data_ptr(), s0.data_ptr(), cnt.data_ptr(), ob.data_ptr(),
-            out.data_ptr(), p.n_blocks, p.block, p.ccol, *consts, stream,
+            out.data_ptr(), p.n_blocks, p.block, p.ccol, *consts, p.n_slots,
+            stream,
         )
     if err:
         msg = ctypes.string_at(lib.sph_cuda_error_string(err)).decode()

@@ -8,12 +8,14 @@ checkpoints and the adaptive resort ladder are ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 
 import numpy as np
 import torch
 
 from ..config import SimParams
+from ..constants import MUSCLE_COUNT
 from ..scene.scene import Scene
 from .timing import StepTimer
 
@@ -91,7 +93,7 @@ class Simulator:
             self._fast_cfg)
         self._fast_chunk = max(1, self._fast_cfg.resort_every)
         self._fast_runs = {}
-        # build the period runner now: a scene the engine cannot step yet
+        # build the period runner now: a scene the engine cannot step
         # fails here, not at the first step
         self._fast_run_for(self._fast_chunk)
         self.state, self.springs, self.membranes = scene.device_state(
@@ -203,6 +205,20 @@ class Simulator:
 
     def get_velocity(self) -> np.ndarray:
         return self.state.vel.cpu().numpy()
+
+    def get_muscle_activation(self) -> np.ndarray:
+        return self.state.muscle_activation.cpu().numpy()
+
+    def set_muscle_activation(self, values) -> None:
+        """Manual override of the activation vector (shorter inputs are
+        zero-padded). Only meaningful when the scene's wave model is off,
+        otherwise the next step overwrites it."""
+        act = np.zeros(MUSCLE_COUNT, np.float32)
+        values = np.asarray(values, np.float32).ravel()
+        act[: len(values)] = values
+        self.state = dataclasses.replace(
+            self.state,
+            muscle_activation=torch.as_tensor(act, device=self.device))
 
     def save(self, path: str, wait: bool = True) -> None:
         raise NotImplementedError("checkpoints: ROADMAP Queue 1 item 9")

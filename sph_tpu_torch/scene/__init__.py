@@ -1,4 +1,4 @@
 from .scene import Scene
-from .worm import generate_liquid_box_scene
+from .worm import generate_liquid_box_scene, generate_worm_scene
 
-__all__ = ["Scene", "generate_liquid_box_scene"]
+__all__ = ["Scene", "generate_liquid_box_scene", "generate_worm_scene"]

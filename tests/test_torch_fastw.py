@@ -1,7 +1,11 @@
 """The port's wall-compact (fastw) engine on CPU (plain pair passes) against
 sph_tpu: its fastw engine with stale windows (Pallas in interpret mode),
 from a kicked box whose liquid hits the floor walls, and its exact
-neighbor-list engine, plus the port's Simulator, stepper and CLI.
+neighbor-list engine, plus the port's Simulator, stepper and CLI; and on
+scenes with elastic matter: a spring chain with muscles and a membrane quad
+against sph_tpu's fastw, the elastic sort tables of a reduced worm against
+sph_tpu's (sort only: stepping the worm in interpret mode is too slow), and
+the port alone stepping that worm.
 
 Tolerances are those of ``tests/test_fastw_engine.py``: positions within
 5e-5, velocities within 10x that."""
@@ -19,6 +23,9 @@ from sph_tpu.core.step import SceneLayout as JLayout
 from sph_tpu.core.step import multi_step
 from sph_tpu.runtime.simulator import resolve_auto_engine as j_resolve
 from sph_tpu.scene import generate_liquid_box_scene as j_box
+from sph_tpu.scene import generate_worm_scene as j_worm
+from sph_tpu.scene import native
+from sph_tpu.scene.scene import Scene as JScene
 
 from sph_tpu_torch.constants import MAX_NEIGHBORS
 from sph_tpu_torch.convert import params_from
@@ -26,7 +33,8 @@ from sph_tpu_torch.core import fastw as W
 from sph_tpu_torch.core.step import SceneLayout
 from sph_tpu_torch.runtime import Simulator
 from sph_tpu_torch.runtime.simulator import resolve_auto_engine
-from sph_tpu_torch.scene import Scene, generate_liquid_box_scene
+from sph_tpu_torch.scene import (Scene, generate_liquid_box_scene,
+                                 generate_worm_scene)
 
 from test_fast_engine import sparse_blob_scene
 from test_torch_pair_kernels import kick_box_scene
@@ -42,9 +50,20 @@ BOX = dict(x_max=8 * H, y_max=8 * H, z_max=8 * H)
 KICK = dict(jitter=0.2, drop=2.6, speed=0.1, noise=0.05)
 
 
+# the worm at full length in a narrower pool: 10h x 20h x 108h keeps the
+# full scene's y geometry (the worm rests on the pool) and every spring
+# anchor elastic, which fastw requires in both packages
+WORM = dict(x_max=10 * H, y_max=20 * H, z_max=108 * H)
+
+
 def port_scene(js):
     return Scene(pos=js.pos.copy(), vel=js.vel.copy(),
-                 color=js.color.copy(), normal=js.normal.copy())
+                 color=js.color.copy(), normal=js.normal.copy(),
+                 spring_rows=js.spring_rows.copy(),
+                 spring_idx=js.spring_idx.copy(),
+                 spring_rest=js.spring_rest.copy(),
+                 spring_type=js.spring_type.copy(), tris=js.tris.copy(),
+                 muscle_model=js.muscle_model)
 
 
 def port_run(scene, params, steps, **cfg_kw):
@@ -210,31 +229,201 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
         Simulator(scene, params, device="cuda")
 
 
-def _elastic_scene(params, muscle_model):
-    js = sparse_blob_scene(JParams(**BOX), n_side=6)
-    scene = port_scene(js)
+def spring_chain_scene(jp):
+    """The spring chain with muscles of ``tests/test_fastw_engine.py``: 8
+    elastic particles of a sparse blob chained by springs of muscle 5."""
+    scene = sparse_blob_scene(jp, n_side=6)
     scene.color[:8] = 2.2
-    idx = np.full((8, MAX_NEIGHBORS), -1, np.int32)
-    idx[:7, 0] = np.arange(1, 8)
-    idx[1:, 1] = np.arange(0, 7)
-    scene.spring_rows = np.arange(8, dtype=np.int32)
+    ne = 8
+    idx = np.full((ne, MAX_NEIGHBORS), -1, np.int32)
+    rest = np.zeros((ne, MAX_NEIGHBORS), np.float32)
+    mus = np.zeros((ne, MAX_NEIGHBORS), np.int32)
+    for a in range(ne):
+        s = 0
+        for b in (a - 1, a + 1):
+            if 0 <= b < ne:
+                idx[a, s] = b
+                r = np.linalg.norm(scene.pos[a] - scene.pos[b])
+                rest[a, s] = r * jp.simulation_scale * 0.97
+                mus[a, s] = 5
+                s += 1
+    scene.spring_rows = np.arange(ne, dtype=np.int32)
     scene.spring_idx = idx
-    scene.spring_rest = np.where(idx >= 0, 1e-6, 0.0).astype(np.float32)
-    scene.spring_type = np.zeros((8, MAX_NEIGHBORS), np.float32)
-    scene.muscle_model = muscle_model
+    scene.spring_rest = rest
+    scene.spring_type = mus.astype(np.float32)
+    scene.muscle_model = True
     return scene
+
+
+def membrane_quad_scene(jp):
+    """The membrane quad of ``tests/test_fastw_engine.py``: two triangles
+    over four elastic particles and one liquid particle 0.4 r0 above."""
+    r0 = jp.r0
+    quad = np.array([
+        [8.0, 8.0, 8.0], [8.0 + r0, 8.0, 8.0],
+        [8.0, 8.0, 8.0 + r0], [8.0 + r0, 8.0, 8.0 + r0],
+    ], np.float32)
+    liq = np.array([[8.0 + 0.5 * r0, 8.0 + 0.4 * r0, 8.0 + 0.5 * r0]],
+                   np.float32)
+    pos = np.concatenate([quad, liq])
+    return JScene(
+        pos=pos, vel=np.zeros_like(pos),
+        color=np.array([2.1] * 4 + [1.1], np.float32),
+        normal=np.zeros_like(pos),
+        tris=np.array([[0, 1, 2], [1, 3, 2]], np.int32),
+    )
+
+
+@pytest.mark.parametrize("name,steps", [("spring_chain", 3),
+                                        ("membrane_quad", 2)])
+def test_port_matches_jax_fastw_elastic(name, steps):
+    jp = JParams(**BOX)
+    js = (spring_chain_scene if name == "spring_chain"
+          else membrane_quad_scene)(jp)
+    jl = js.layout()
+    jcfg = JW.compute_fastw_config(js.pos, jp, jl, ptype=js.ptype)
+    assert jcfg.interpret
+    jout = JW.make_fastw_multi_step(jp, jl, jcfg, steps)(*js.device_state())
+    scene = port_scene(js)
+    out, diag = port_run(scene, params_from(jp), steps)
+    assert int(diag["tile_overflow"]) == 0
+    np.testing.assert_allclose(out.pos.numpy(), np.asarray(jout.pos),
+                               rtol=0, atol=ATOL)
+    np.testing.assert_allclose(out.vel.numpy(), np.asarray(jout.vel),
+                               rtol=0, atol=ATOL * 10)
+    assert int(out.step) == int(jout.step) == steps
+    act = out.muscle_activation.numpy()
+    np.testing.assert_allclose(act, np.asarray(jout.muscle_activation),
+                               rtol=0, atol=1e-6)
+    if name == "spring_chain":
+        assert act.max() > 0.5          # the wave model drove the muscles
+        # the springs pulled: with them cut the chain ends up elsewhere
+        cut = port_scene(js)
+        cut.spring_idx[:] = -1
+        free, _ = port_run(cut, params_from(jp), steps)
+        assert np.abs(free.pos.numpy()[:8] - out.pos.numpy()[:8]).max() \
+            > 100 * ATOL
+    else:
+        assert not act.any()
+        # the membrane pushed the liquid particle up
+        assert out.pos.numpy()[4, 1] > scene.pos[4, 1] + 0.1
+
+
+@pytest.fixture(scope="module")
+def worm():
+    """The reduced worm of both packages (sph_tpu's NumPy generator), the
+    port's engine parts and sort context, and sph_tpu's sort context."""
+    saved = native.available
+    native.available = lambda: False
+    try:
+        js = j_worm(JParams(**WORM))
+    finally:
+        native.available = saved
+    params = params_from(JParams(**WORM))
+    scene = generate_worm_scene(params)
+    np.testing.assert_array_equal(scene.pos, js.pos)
+    np.testing.assert_array_equal(scene.spring_idx, js.spring_idx)
+    layout = scene.layout()
+    assert layout.springs_elastic_only and layout.spring_slots == 16
+    cfg = W.compute_fastw_config(scene.pos, params, layout,
+                                 ptype=scene.ptype)
+    ws = W.precompute_wall_static(scene.pos, scene.normal, params, layout,
+                                  cfg)
+    parts = W._make_step_parts_w(params, layout, cfg, wall_static=ws)
+    ctx, _ = parts.sort_ctx(*scene.device_state("cpu"))
+    jp, jl = JParams(**WORM), js.layout()
+    jcfg = JW.compute_fastw_config(js.pos, jp, jl, ptype=js.ptype)
+    jws = JW.precompute_wall_static(js.pos, js.normal, jp, jl, jcfg)
+    jctx, _ = JW._make_step_parts_w(jp, jl, jcfg, wall_static=jws)[0](
+        *js.device_state())
+    return dict(params=params, scene=scene, cfg=cfg, ctx=ctx, jctx=jctx)
+
+
+def test_worm_elastic_sort_tables_match_jax(worm):
+    ctx, jctx, cfg = worm["ctx"], worm["jctx"], worm["cfg"]
+    for k in ("els", "mem_vidx"):
+        np.testing.assert_array_equal(ctx[k].numpy(), np.asarray(jctx[k]),
+                                      err_msg=k)
+    # sph_tpu's spr_static (partner ids, rest lengths) is rows 3..3+2*slots
+    # of the port's spring pack
+    np.testing.assert_array_equal(ctx["spr_pack"][3:3 + 2 * 16].numpy(),
+                                  np.asarray(jctx["spr_static"]))
+    for k in ("spr_tables", "mem_tables", "tables_m", "tables_ms"):
+        assert len(ctx[k]) == len(jctx[k]) == 6
+        for i, (a, b) in enumerate(zip(ctx[k], jctx[k])):
+            assert a.dtype == torch.int32, (k, i)
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                          err_msg=f"{k}[{i}]")
+    np.testing.assert_array_equal(
+        ctx["mem_pt_ok"].numpy().reshape(-1, 7), np.asarray(jctx["mem_pt_ok"]))
+    np.testing.assert_array_equal(
+        ctx["mem_pt_safe"].numpy().reshape(-1, 7),
+        np.asarray(jctx["mem_pt_safe"]))
+    # the gather index of the activation term addresses what sph_tpu's
+    # one-hot matrix selects
+    onehot = np.asarray(jctx["spr_onehot"])
+    mid = ctx["spr_mid"].numpy().T.reshape(-1)
+    np.testing.assert_array_equal(
+        np.where(onehot.any(1), onehot.argmax(1) + 1, 0), mid)
+    assert (mid > 0).sum() > 1000
+    # the gates decide which blocks work: blocks without elastic rows run
+    # no spring tile, blocks away from the worm no membrane tile
+    n_all = int((ctx["tables_m"][4] > 0).sum())
+    for k in ("spr_tables", "mem_tables"):
+        assert 0 < int((ctx[k][4] > 0).sum()) < n_all <= cfg.n_blocks
+    # the packs' pad columns: far positions, -1 ids, no triangles
+    n_el, pack = ctx["els"].shape[0], ctx["spr_pack"]
+    assert pack.shape == (3 + 3 * 16, -(-n_el // 128) * 128 + 256)
+    assert bool((pack[:3, n_el:] > worm["params"].z_max).all())
+    assert bool((pack[3:19, n_el:] == -1).all())
+    assert not ctx["mem_pack"][:42].any()
+
+
+def test_port_steps_reduced_worm(worm):
+    """5 steps of the reduced worm on the CPU (plain passes): finite,
+    springs hold (the integrity bound of the worm gate: strain < 0.5), the
+    muscles follow the wave, the membrane pass acts on some liquid."""
+    params, scene = worm["params"], worm["scene"]
+    sim = Simulator(scene, params, engine="auto", device="cpu")
+    assert sim.engine == "fastw"
+    sim.step(5)
+    pos = sim.get_position()
+    assert np.isfinite(pos).all() and np.isfinite(sim.get_velocity()).all()
+    b0, b1 = sim.layout.boundary_range
+    np.testing.assert_array_equal(pos[b0:b1], scene.pos[b0:b1])
+    idx = scene.spring_idx
+    used = idx >= 0
+    a = pos[np.repeat(scene.spring_rows, idx.shape[1])[used.ravel()]]
+    r = np.linalg.norm(a - pos[idx[used]], axis=1) * params.simulation_scale
+    rest = scene.spring_rest[used]
+    strain = float(np.max(np.abs(r - rest) / np.maximum(rest, 1e-9)))
+    assert 0.0 < strain < 0.5
+    from sph_tpu_torch.models import muscle
+    np.testing.assert_allclose(
+        sim.get_muscle_activation(),
+        muscle.waves_signal(torch.tensor(4.0)).numpy(), rtol=0, atol=1e-6)
+    ovf = sim.check_overflow()
+    assert ovf["shell_overflow"] == 0 and ovf["tile_overflow"] == 0
+    # override: taken as given, zero-padded (the wave model then overwrites
+    # it at the next step)
+    sim.set_muscle_activation([1.0, 0.5])
+    act = sim.get_muscle_activation()
+    assert act[0] == 1.0 and act[1] == 0.5 and not act[2:].any()
+    # one more recorded step: both elastic passes sum nonzero terms
+    calls = W.record_step_inputs(
+        W._make_step_parts_w(params, sim.layout, sim._fast_cfg,
+                             wall_static=sim._wall_static),
+        sim.state, sim.springs, sim.membranes)
+    assert sorted(calls) == sorted(
+        ["raw_mm", "raw_ms", "raw_sm", "visc_mm", "visc_ms", "pacc_mm",
+         "pacc_ms", "bnd_ms", "spring_ms", "mem_ms"])
+    for name in ("spring_ms", "mem_ms"):
+        p, tables, own, slab = calls[name]
+        assert any(bool(o.abs().max() > 0) for o in p(tables, own, slab))
 
 
 def test_unported_paths_raise():
     params = params_from(JParams(**BOX))
-    # springs (no walls: auto picks "fast", so ask for fastw)
-    sim = Simulator(_elastic_scene(params, False), params, engine="fastw",
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="worm slice"):
-        sim.step(1)
-    with pytest.raises(NotImplementedError, match="worm slice"):
-        Simulator(_elastic_scene(params, True), params, engine="fastw",
-                  device="cpu")
     box = generate_liquid_box_scene(params, fill_fraction=0.5)
     blob = port_scene(sparse_blob_scene(JParams(**BOX)))
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):

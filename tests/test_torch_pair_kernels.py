@@ -21,6 +21,15 @@ of the output's vector (``pair_kernels.OUTPUT_GROUPS``):
   each tile on the tile's first (real) column and sums offsets of ~``far``
   through a bf16 split, leaving up to 1e-2 of the output's scale there. On
   those rows the port and the oracle must both be exactly 0.
+
+The spring and membrane passes run on synthetic packs and tables made here
+from a seed (``elastic_inputs``): a cloud of own rows of which a sorted
+subset is the compact elastic slab, with partner lists that hold pads, a
+partner listed twice, a coincident partner and nonzero activation terms,
+triangle slots that hold 0 to 7 triangles per column and one triangle whose
+plane passes exactly through an own row (s == 0), and tables whose blocks
+stream all, some or none of the slab's tiles (so some own rows meet no
+partner). Same bounds: 2e-6 against the oracle, 1e-4 against Pallas.
 """
 import dataclasses
 
@@ -37,9 +46,18 @@ from sph_tpu_torch.core import fastw as W
 from sph_tpu_torch.ops import pair_kernels as pk
 from sph_tpu_torch.scene import generate_liquid_box_scene
 
+# The first parallel op of a process that takes a square root has, on some
+# hosts, returned ~3e-4-relative results in one worker thread's chunk (5 of
+# 60 fresh processes with torch 2.13 + OpenMP on an AVX-512 host: torch.sqrt
+# as the first op; never when another parallel op ran first, 0 of 80; later
+# calls are exact). One cheap parallel op at import keeps that host fault
+# out of every comparison of this file and of those that import it.
+torch.rand(1 << 20).mul_(2.0)
+
 H = 3.34
 ORACLE_TOL = 2e-6
-TOL = {"rho_star": 1e-5, "viscsurf": 1e-4, "paccel": 1e-4, "boundary": 1e-4}
+TOL = {"rho_star": 1e-5, "viscsurf": 1e-4, "paccel": 1e-4, "boundary": 1e-4,
+       "spring": 1e-4, "membrane": 1e-4}
 # kind -> outputs held against Pallas on real own rows only (see above)
 SURFACE = {"viscsurf": (3, 4, 5)}
 PASS_NAMES = ["raw_mm", "raw_ms", "raw_sm", "visc_mm", "visc_ms",
@@ -104,6 +122,13 @@ def jax_pass(p: pk.PairPass, params):
         return jpk.make_paccel_pass(
             inv_h=np.float32(1.0 / params.h),
             rho0_delta=np.float32(params.rho0 * params.delta), **kw)
+    if p.kind == "spring":
+        return jpk.make_spring_pass(
+            inv_h=np.float32(1.0 / params.h),
+            h_scale=np.float32(params.h * params.simulation_scale),
+            k_spring=np.float32(params.k_spring), n_slots=p.n_slots, **kw)
+    if p.kind == "membrane":
+        return jpk.make_membrane_pass(r0=np.float32(params.r0), **kw)
     return jpk.make_boundary_pass(r0=np.float32(params.r0), **kw)
 
 
@@ -114,10 +139,53 @@ def jax_pack(t):
     return jnp.asarray(np.pad(a, ((0, pad), (0, 0))))
 
 
-def oracle_terms(kind, params, o, s):
+def spring_terms(params, o, s, gid, n_slots):
+    """f64 spring + muscle force terms: own row i pairs with column j once
+    per slot of j that lists i; force along x_i - x_j of magnitude
+    -(r - rest) k - actf per matched slot, r in meters."""
+    d = o[:3] - s[:3]
+    r = np.sqrt((d * d).sum(0))                              # sim units
+    coef = 0.0
+    for k in range(n_slots):
+        m = s[3 + k] == gid
+        coef = coef + m * (
+            -(r * params.simulation_scale - s[3 + n_slots + k])
+            * params.k_spring - s[3 + 2 * n_slots + k])
+    unit = d / np.where(r > 0.0, r, 1.0)
+    return [np.where(r > 0.0, coef * unit[k], 0.0) for k in range(3)]
+
+
+def membrane_terms(params, o, s):
+    """f64 membrane terms: per pair the unit normals of the column's
+    triangles, each signed by the side of its plane the own row's new
+    position lies on, averaged over the triangles counted; weight by the
+    new-position distance within r0."""
+    r0 = params.r0
+    xn = o[3:6]
+    cnt, v = 0.0, 0.0
+    for t in range(7):
+        nt, at = s[6 * t:6 * t + 3], s[6 * t + 3:6 * t + 6]
+        side = ((xn - at) * nt).sum(0)
+        sgn = np.where((nt * nt).sum(0) > 0.0, np.sign(side), 0.0)
+        cnt = cnt + np.abs(sgn)
+        v = v + sgn * nt
+    d = xn - s[42:45]
+    dist = np.sqrt((d * d).sum(0))
+    w = np.where(cnt > 0, np.maximum(0.0, (r0 - dist) / r0), 0.0)
+    mean = v / np.maximum(cnt, 1.0)
+    return [w * mean[k] for k in range(3)] + [w, w * (r0 - dist)]
+
+
+def oracle_terms(p, params, o, s, gid):
     """Each output's f64 pair terms of one own block: ``o`` own pack rows
-    [k, B, 1], ``s`` slab pack rows [k, 1, C] (sph_tpu's pass docstrings,
-    with constants from ``params`` in f64)."""
+    [k, B, 1], ``s`` slab pack rows [k, 1, C], ``gid`` the own rows' sorted
+    ids [B, 1] (sph_tpu's pass docstrings, with constants from ``params``
+    in f64)."""
+    kind = p.kind
+    if kind == "spring":
+        return spring_terms(params, o, s, gid, p.n_slots)
+    if kind == "membrane":
+        return membrane_terms(params, o, s)
     h = params.h
     d = o[:3] - s[:3]
     if kind == "boundary":                  # distances from the new x_i
@@ -159,14 +227,15 @@ def block_pairs(p: pk.PairPass, tables, own, slab):
         cols = np.concatenate(tiles)
         cols = cols[cols < s64.shape[1]]
         rows = ob[0] + b * p.block + np.arange(p.block)
-        yield b, o64[:, rows][:, :, None], s64[:, cols][:, None, :]
+        yield (b, o64[:, rows][:, :, None], s64[:, cols][:, None, :],
+               rows[:, None].astype(np.float64))
 
 
 def oracle(p: pk.PairPass, params, tables, own, slab):
     """f64 sums of each output's pair terms, block by block."""
     out = np.zeros((pk._SPECS[p.kind][0], p.n_pad))
-    for b, o, s in block_pairs(p, tables, own, slab):
-        for k, t in enumerate(oracle_terms(p.kind, params, o, s)):
+    for b, o, s, gid in block_pairs(p, tables, own, slab):
+        for k, t in enumerate(oracle_terms(p, params, o, s, gid)):
             out[k, b * p.block:(b + 1) * p.block] = t.sum(-1)
     return list(out)
 
@@ -222,9 +291,189 @@ def test_plain_pass_matches_pallas(recorded, name):
     assert_close(p, params, tables, own, out, ref, orc)
     if p.kind == "paccel":               # both branches of the pair weight
         r = np.concatenate([np.sqrt(((o[:3] - s[:3]) ** 2).sum(0)).ravel()
-                            for _, o, s in block_pairs(p, tables, own, slab)])
+                            for _, o, s, _ in block_pairs(p, tables, own,
+                                                          slab)])
         assert ((r > 0) & (r < params.h / 4)).sum() > 0
         assert ((r > params.h / 4) & (r < params.h)).sum() > 0
+
+
+N_SLOTS = 4
+EL_BLOCK, EL_CCOL, EL_BLOCKS, N_EL = 128, 128, 8, 300
+
+
+def elastic_inputs(seed=0):
+    """(params, {"spring_ms": call, "mem_ms": call}) with call = (PairPass,
+    tables, own, slab) as the engine would hand them: synthetic, from a
+    seed. 900 real own rows in an 8-unit cube (the rest pads at ``far``), of
+    which a sorted subset of 300 rows is the elastic slab (mcap 512)."""
+    rng = np.random.default_rng(seed)
+    params = SimParams()
+    far = np.float32(max(params.x_max, params.y_max, params.z_max)
+                     + 100.0 * params.h)
+    n_pad = EL_BLOCKS * EL_BLOCK
+    n_alloc, n_real = n_pad + EL_CCOL, 900
+    mcap = -(-N_EL // 128) * 128 + EL_CCOL
+    x_t = np.full((3, n_alloc), far, np.float32)
+    x_t[:, :n_real] = rng.uniform(0.0, 8.0, (3, n_real))
+    x_n = x_t.copy()
+    x_n[:, :n_real] += rng.normal(0.0, 0.05, (3, n_real)).astype(np.float32)
+    els = np.sort(rng.choice(n_real, N_EL, replace=False))
+
+    # one block streams nothing, one its middle tile only (its elastic rows
+    # meet no partner outside it), one three disjoint chunks, the rest all
+    aln = np.zeros((EL_BLOCKS, 3), np.int32)
+    s0 = np.zeros((EL_BLOCKS, 3), np.int32)
+    cnt = np.zeros(EL_BLOCKS, np.int32)
+    for b in range(EL_BLOCKS):
+        aln[b], s0[b], cnt[b] = (0, 512, 512), (0, 4, 4), 4
+    aln[1], s0[1], cnt[1] = (128, 256, 256), (0, 1, 1), 1
+    aln[2], s0[2], cnt[2] = (0, 256, 384), (0, 1, 2), 3
+    cnt[5] = 0
+    z = np.zeros(EL_BLOCKS * 3, np.int32)
+    tables = tuple(torch.as_tensor(a) for a in (
+        aln.reshape(-1), z, z, s0.reshape(-1), cnt, np.zeros(1, np.int32)))
+
+    # ---- spring slab ----
+    spr = np.zeros((pk.spr_cols(N_SLOTS), mcap), np.float32)
+    spr[:3] = far
+    spr[:3, :N_EL] = x_t[:, els]
+    spr[3:3 + N_SLOTS] = -1.0
+    scale = params.simulation_scale
+    for j in range(N_EL):
+        k = int(rng.integers(0, N_SLOTS + 1))
+        partners = rng.choice(np.delete(els, j), k, replace=False)
+        if j % 7 == 0 and k >= 2:
+            partners[1] = partners[0]              # listed twice
+        for slot, i in enumerate(partners):
+            r = np.linalg.norm(x_t[:, i] - x_t[:, els[j]])
+            spr[3 + slot, j] = i
+            spr[3 + N_SLOTS + slot, j] = r * scale * rng.uniform(0.9, 1.0)
+            if rng.random() < 0.5:                 # a muscle spring
+                spr[3 + 2 * N_SLOTS + slot, j] = (
+                    rng.uniform(0.2, 1.0) * params.muscle_force)
+    # a partner at the very same position: q2 == 0 drops the pair
+    i_same = int(els[0])
+    spr[:3, 1] = x_t[:, i_same]
+    spr[3, 1], spr[3 + N_SLOTS, 1] = i_same, 1e-3
+    own_main = np.zeros((pk.MAIN_COLS, n_alloc), np.float32)
+    own_main[:3] = x_t
+    kw = dict(block=EL_BLOCK, ccol=EL_CCOL, n_blocks=EL_BLOCKS,
+              inv_h2=np.float32(1.0 / (params.h * params.h)))
+    spring = pk.make_spring_pass(
+        inv_h=np.float32(1.0 / params.h),
+        h_scale=np.float32(params.h * scale),
+        k_spring=np.float32(params.k_spring), n_slots=N_SLOTS, **kw)
+
+    # ---- membrane slab ----
+    mem = np.zeros((pk.MEM_COLS, mcap), np.float32)
+    mem[42:] = far
+    mem[42:45, :N_EL] = x_n[:, els]
+    mem[45:48, :N_EL] = x_t[:, els]
+    n_tri = rng.integers(0, 8, N_EL)               # 0..7 triangles a column
+    n_tri[rng.random(N_EL) < 0.3] = 0
+    for j in range(N_EL):
+        for t in range(n_tri[j]):
+            nt = rng.normal(size=3)
+            mem[6 * t:6 * t + 3, j] = nt / np.linalg.norm(nt)
+            mem[6 * t + 3:6 * t + 6, j] = (
+                x_n[:, els[j]] + rng.normal(0.0, 0.5, 3))
+    # a triangle whose plane holds an own row's new position exactly
+    # (s == 0: not counted), beside one that is counted
+    j0 = int(np.argmax(n_tri >= 2))
+    d = np.linalg.norm(x_n[:, :n_real].T - mem[42:45, j0], axis=1)
+    d[els[j0]] = np.inf
+    for blk in (1, 2, 5):                          # blocks that skip tiles
+        d[blk * EL_BLOCK:(blk + 1) * EL_BLOCK] = np.inf
+    i0 = int(np.argmin(d))
+    assert d[i0] < params.r0
+    mem[0:6, j0] = (0.0, 1.0, 0.0, 0.0, x_n[1, i0], 0.0)
+    own6 = np.concatenate([x_t, x_n])
+    membrane = pk.make_membrane_pass(r0=np.float32(params.r0), **kw)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a))
+
+    return params, dict(
+        spring_ms=(spring, tables, t(own_main), t(spr)),
+        mem_ms=(membrane, tables, t(own6), t(mem)),
+    ), dict(els=els, i0=i0, j0=j0)
+
+
+@pytest.fixture(scope="module")
+def elastic():
+    return elastic_inputs()
+
+
+@pytest.mark.parametrize("name", ["spring_ms", "mem_ms"])
+def test_elastic_pass_matches_pallas(elastic, name):
+    params, calls, _ = elastic
+    p, tables, own, slab = calls[name]
+    before = dict(pk.LAUNCHES)
+    out, ref, orc = run_both(p, params, tables, own, slab)
+    assert pk.LAUNCHES == before          # CPU tensors: no kernel launch
+    assert_close(p, params, tables, own, out, ref, orc)
+    # block 5 streams no tile: exactly zero
+    blk = slice(5 * p.block, 6 * p.block)
+    assert all(not o[blk].any() for o in out)
+
+
+def test_elastic_inputs_cover_the_cases(elastic):
+    """The synthetic inputs hold what the formulas branch on (a test on
+    inputs without them would pass a wrong formula)."""
+    params, calls, info = elastic
+    p, tables, own, slab = calls["spring_ms"]
+    s = slab.numpy()
+    ids, n = s[3:3 + N_SLOTS], N_SLOTS
+    assert (ids == -1).any() and (s[3 + 2 * n:] != 0).sum() > 50
+    assert any(len(set(c[c >= 0])) < (c >= 0).sum() for c in ids.T)
+    out = [o.numpy() for o in p(tables, own, slab)]
+    force = np.abs(np.stack(out)).sum(0)
+    els = info["els"]
+    assert (force[els] > 0).sum() > 100
+    # an elastic own row of block 1 (one tile) whose partners lie elsewhere
+    in_b1 = els[(els >= p.block) & (els < 2 * p.block)]
+    listed = {int(i) for c in ids[:, p.ccol:2 * p.ccol].T for i in c}
+    assert any(int(i) not in listed for i in in_b1)
+    assert not force[[i for i in in_b1 if int(i) not in listed]].any()
+    # liquid (non-elastic) own rows feel no spring
+    assert not np.delete(force, els).any()
+
+    p, tables, own, slab = calls["mem_ms"]
+    m, o6 = slab.numpy().astype(np.float64), own.numpy().astype(np.float64)
+    ntri = (np.abs(m[:42].reshape(7, 6, -1)[:, :3]).sum(1) > 0).sum(0)
+    assert set(range(8)) <= set(ntri.tolist())
+    i0, j0 = info["i0"], info["j0"]
+    side0 = ((o6[3:6, i0] - m[3:6, j0]) * m[0:3, j0]).sum()
+    assert side0 == 0.0 and ntri[j0] >= 2
+    wsum = p(tables, own, slab)[3].numpy()
+    assert (wsum > 0).sum() > 100
+
+
+@pytest.mark.parametrize("name", PASS_NAMES + ["spring_ms", "mem_ms"])
+def test_rounding_scale_bounds_the_sums(recorded, elastic, name):
+    """``PairPass.rounding_scale``: per row at least the f64 sum of the
+    absolute pair terms (a cutoff factor counts as no less than itself), on
+    a row without pairs exactly 0, and 1e-5 of its max bounds the f32 plain
+    version's distance from the f64 oracle."""
+    params, calls = recorded
+    p, tables, own, slab = dict(calls, **elastic[1])[name]
+    scale = p.rounding_scale(tables, own, slab)
+    scale = [a.numpy() for a in (scale if isinstance(scale, tuple)
+                                 else (scale,))]
+    out = p.plain(tables, own, slab)
+    out = [a.numpy() for a in (out if isinstance(out, tuple) else (out,))]
+    orc = oracle(p, params, tables, own, slab)
+    absum = np.zeros((len(orc), p.n_pad))
+    for b, o, s, gid in block_pairs(p, tables, own, slab):
+        for k, t in enumerate(oracle_terms(p, params, o, s, gid)):
+            absum[k, b * p.block:(b + 1) * p.block] = np.abs(t).sum(-1)
+    for group in pk.OUTPUT_GROUPS[p.kind]:
+        top = max(float(scale[i].max()) for i in group)
+        for i in group:
+            assert scale[i].shape == (p.n_pad,) and (scale[i] >= 0).all()
+            assert (scale[i] >= absum[i] * (1 - 1e-5)).all(), (name, i)
+            assert not scale[i][absum[i] == 0].any(), (name, i)
+            assert np.abs(out[i] - orc[i]).max() <= 1e-5 * top, (name, i)
 
 
 @pytest.mark.parametrize("name", ["raw_mm", "bnd_ms"])
@@ -268,6 +517,24 @@ def test_dispatch_and_input_checks(recorded):
         p.kernel(tables, own[:2].contiguous(), slab)
 
 
+def test_spring_pass_checks(elastic):
+    """The spring slab's row count follows the slot count; ids must stay
+    exact as f32."""
+    _, calls, _ = elastic
+    p, tables, own, slab = calls["spring_ms"]
+    assert p.slab_rows == pk.spr_cols(N_SLOTS) == 15
+    assert p.shared_bytes == 15 * p.ccol * 4
+    assert calls["mem_ms"][0].slab_rows == 45
+    wide = dataclasses.replace(p, n_slots=16)
+    assert wide.slab_rows == 51 and dataclasses.replace(
+        wide, ccol=256).shared_bytes == 52_224
+    with pytest.raises(ValueError, match="rows"):   # slab too short for 16
+        wide.kernel(tables, own, slab)
+    kw = dict(block=256, ccol=256, inv_h=1.0, h_scale=1.0, k_spring=1.0)
+    with pytest.raises(ValueError, match="2\\^24"):
+        pk.make_spring_pass(n_blocks=1 << 16, **kw)
+
+
 def test_rho_star_clamped_wrapper(recorded):
     """raw=False applies c_rho * max((s - (h^2)^3) / h^6, 1) like sph_tpu."""
     params, calls = recorded
@@ -283,12 +550,13 @@ def test_rho_star_clamped_wrapper(recorded):
 
 
 @pytest.mark.cuda
-def test_kernels_match_plain_on_cuda(recorded):
+def test_kernels_match_plain_on_cuda(recorded, elastic):
     """On a CUDA card: each Hopper kernel against its plain version on the
     same inputs (1e-5 of the output vector's max magnitude)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     params, calls = recorded
+    calls = dict(calls, **elastic[1])
     for name, (p, tables, own, slab) in calls.items():
         cu = [t.cuda() for t in tables]
         before = pk.LAUNCHES[p.kind]
