@@ -74,12 +74,41 @@ Phases (any failure raises and exits nonzero, printing no result):
    f32 rate, against its input and output bytes over the card's memory
    rate.
 
-``--only`` runs the named phases alone (small: 3-4, box: 5-6, rworm: 7,
-rworm_engine: 8, worm: 9-10) while iterating; the run then prints no result
-lines and exits 2.
+11. kernel vs plain (fast engine, small box): phase 3's settled box with
+   ``compute_fast_config`` at block 128, ccol 128, every pass of one fast
+   step (density, rho*, viscsurf, paccel, boundary) ungated and at sub
+   8/16/32, held as in phase 3 (the force passes on the rows the engine
+   uses: not walls); the gated kernels of the sort-time passes against the
+   ungated ones on the same inputs (max |diff|, rows that differ);
+12. engine vs plain (fast engine, small box): phase 4 at resort_every 1 and
+   3, sub None and 32;
+13. the wall-anchored worm (14h x 12h x 108h: springs anchored to walls):
+   ``Simulator(engine="auto")`` must pick the fast engine, whose springs
+   take the gather fallback; 60 steps (the first period re-sorted every
+   step), 10 launches a step, max strain < 0.5 on the worm's own springs
+   and < 1 on its wall anchors (the scene starts stretched), the fallback's
+   accelerations on the card against the cpu, then 10 steps cuda vs cpu;
+14. the dam-break (``generate_liquid_box_scene(SimParams(),
+   fill_fraction=0.8)``, 919,158 particles): auto must pick the fast engine;
+   one period of warm-up, 120 timed steps (finite, walls still, liquid in
+   the box, 9 launches a step), then every kernel against its plain version
+   and timed beside its bound on the final state;
+15. the full worm on the fast engine with the TPU-tuned tile widths (block
+   256, ccol 512, ccol_c 256): 530 steps through the integrity gate, 120
+   timed steps ungated and 120 at sub 32 (11 launches a step each), the
+   density pass's computed columns a particle and kernel time ungated and
+   gated at ccol 128 and 512, every kernel (spring and membrane fed by the
+   fast engine's packs) against its plain version and timed, ungated and
+   gated.
 
-Ends with a JSON line of per-kernel results and, last, the one-line
-``{"ok": true, "device": {...}}``.
+Each phase prints its seconds. ``--only`` runs the named phases alone
+(small: 3-4, box: 5-6, rworm: 7, rworm_engine: 8, worm: 9-10, small_fast:
+11-12, tiny_worm: 13, dam: 14, fast_worm: 15) while iterating; the run then
+prints no result lines and exits 2.
+
+Ends with a JSON line of per-kernel results (each kernel's numbers from the
+path that runs it at its main shapes, with its launches a step on every
+path) and, last, the one-line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -98,7 +127,9 @@ from scipy.spatial import cKDTree
 
 from sph_tpu_torch.constants import (BOUNDARY_PARTICLE, ELASTIC_PARTICLE,
                                      LIQUID_PARTICLE)
+from sph_tpu_torch.core import fast as F
 from sph_tpu_torch.core import fastw as W
+from sph_tpu_torch.core.elastic import elastic_accel
 from sph_tpu_torch.models import muscle
 from sph_tpu_torch.ops import _build
 from sph_tpu_torch.ops import pair_kernels as pk
@@ -134,6 +165,7 @@ PASSES = {
 ELASTIC_PASSES = ("spring_ms", "mem_ms")
 BOX_PASSES = set(PASSES) - set(ELASTIC_PASSES)
 REPLACES = {
+    "density": "sph_tpu/ops/pair_kernels.py:756",
     "rho_star": "sph_tpu/ops/pair_kernels.py:878",
     "viscsurf": "sph_tpu/ops/pair_kernels.py:799",
     "paccel": "sph_tpu/ops/pair_kernels.py:926",
@@ -155,12 +187,35 @@ PEAK_BYTES_S = 3.35e12
 # pair) for the springs the slab lists; membrane the distance test (12) for
 # every candidate pair and the 7-triangle side test and sums (7 x 24 + 12)
 # for the pairs within r0.
-PAIR_FLOPS = {"rho_star": 13, "viscsurf": 25, "paccel": 29, "boundary": 22}
+PAIR_FLOPS = {"density": 13, "rho_star": 13, "viscsurf": 25, "paccel": 29,
+              "boundary": 22}
 SPRING_MATCH_FLOPS = 3 + 28
 MEMBRANE_TEST_FLOPS, MEMBRANE_NEAR_FLOPS = 12, 7 * 24 + 12
 # the reduced worm: full length in a narrower pool, every spring anchor
 # elastic (a lower or tighter box anchors the worm's springs to the walls)
 REDUCED_WORM = dict(x_max=10 * H, y_max=20 * H, z_max=108 * H)
+
+# ---- the fast engine (phases 11-15) ----
+# the subgroup gate's kernels replace the TPU's gated pass
+for _k in pk.GATED:
+    REPLACES[_k + "_sub"] = "sph_tpu/ops/pair_kernels.py:492"
+# fast-engine pass name -> launches a step (the density kind runs the
+# time-t density and, on the iteration pack, the 3 rho* launches)
+FAST_PASSES = {"density": 1, "rho_star": 3, "viscsurf": 1, "paccel": 3,
+               "boundary": 1, "spring": 1, "membrane": 1}
+# launch keys a step: 9 pair launches on the liquid box, 11 on the worm
+PER_STEP_DAM = {"density": 4, "viscsurf": 1, "paccel": 3, "boundary": 1}
+PER_STEP_FAST_WORM = dict(PER_STEP_DAM, spring=1, membrane=1)
+SUBS = (None, 8, 16, 32)
+# the worm of ``__graft_entry__._tiny_worm``: its springs anchor to walls
+TINY_WORM = dict(x_max=14 * H, y_max=12 * H, z_max=108 * H)
+TINY_SETTLE = 60
+DAM_WARMUP = 30   # one resort period before the timed steps
+DAM_STEPS = 120
+# the TPU-tuned fast-engine worm config (results/r4/best_config.json)
+R4 = dict(block=256, ccol=512, ccol_c=256)
+FAST_WORM_STEPS = 530
+FAST_WORM_TIMED = 120
 
 
 def check(ok, msg):
@@ -250,7 +305,8 @@ def record_step_inputs(params, layout, cfg, ws, state, springs, membranes):
     return calls
 
 
-def elastic_input_counts(params, calls, label):
+def elastic_input_counts(params, calls, label,
+                         names=("spring_ms", "mem_ms")):
     """The counts that make the spring and membrane checks non-vacuous:
     nonzero activation terms in the spring slab, and pairs of a liquid own
     row and an elastic column within r0 (new positions) whose column counts
@@ -259,10 +315,10 @@ def elastic_input_counts(params, calls, label):
     block's window, so the tables list them. Returns the data-dependent
     work of the two passes for ``pass_bound``: the springs the slab lists,
     and the pairs of any real own row and an elastic column within r0."""
-    p, _, _, slab = calls["spring_ms"][:4]
-    n_act = int((slab[3 + 2 * p.n_slots:] != 0).sum())
+    p, _, _, slab = calls[names[0]][:4]
+    n_act = int((slab[3 + 2 * p.n_slots:3 + 3 * p.n_slots] != 0).sum())
     n_springs = int((slab[3:3 + p.n_slots] >= 0).sum())
-    p, tables, own, slab, liquid = calls["mem_ms"]
+    p, tables, own, slab, liquid = calls[names[1]]
     far = box_edge(params)
     own_all = own[3:6, :p.n_pad].T.cpu().numpy().astype(np.float64)
     own_n = own_all[liquid.cpu().numpy()]
@@ -290,18 +346,39 @@ def elastic_input_counts(params, calls, label):
     return dict(spring=n_springs, membrane=n_near)
 
 
-def pass_bound(p, tables, own, slab, far, data_work):
-    """(candidate pairs, bound ms, "operations" | "bytes") of one launch:
-    pairs = sum over blocks of tiles x tile width x real own rows (pad rows
-    sit beyond ``far``); operations = pairs x the functor's count (see
-    ``PAIR_FLOPS``; ``data_work`` holds the elastic passes' data-dependent
-    pair counts) over the card's f32 peak; bytes = the pack rows the pass
-    reads, its tables and its outputs, each once, over the card's memory
-    rate."""
-    n_out, own_rows, slab_rows = pk._rows(p)
+def computed_pairs(p, tables, own, far):
+    """(candidate pairs the launch computes, real own rows): per block its
+    tiles x tile width x its real own rows (pad rows sit beyond ``far``);
+    for a gated pass per subgroup the tiles its gate admits x tile width x
+    the group's real rows. pairs / rows = computed columns per particle."""
     ob = int(tables[5][0])
     real = (own[0, ob:ob + p.n_pad] < far).reshape(p.n_blocks, p.block)
-    pairs = int((tables[4].long() * real.sum(1)).sum()) * p.ccol
+    if not p.gated:
+        return (int((tables[4].long() * real.sum(1)).sum()) * p.ccol,
+                int(real.sum()))
+    aln, _, _, s0, cnt, _ = (t.long() for t in tables[:6])
+    ng = p.block // p.sub
+    t = torch.arange(int(cnt.max()), device=cnt.device)[None, :]
+    b3 = torch.arange(p.n_blocks, device=cnt.device)[:, None] * 3
+    c = b3 + (t >= s0[b3 + 1]).long() + (t >= s0[b3 + 2]).long()
+    off = (aln[c] + (t - s0[c]) * p.ccol)[:, None, None, :]
+    glo, ghi = (g.long().reshape(p.n_blocks, 3, ng)[..., None]
+                for g in tables[6:8])
+    act = ((ghi > off) & (glo < off + p.ccol)).any(1)   # [nb, ng, T]
+    act &= (t < cnt[:, None])[:, None, :]
+    rows = real.reshape(p.n_blocks, ng, p.sub).sum(2)
+    return (int((act.sum(2) * rows).sum()) * p.ccol, int(real.sum()))
+
+
+def pass_bound(p, tables, own, slab, far, data_work):
+    """(candidate pairs, bound ms, "operations" | "bytes") of one launch:
+    pairs = ``computed_pairs``; operations = pairs x the functor's count
+    (see ``PAIR_FLOPS``; ``data_work`` holds the elastic passes'
+    data-dependent pair counts) over the card's f32 peak; bytes = the pack
+    rows the pass reads, its tables and its outputs, each once, over the
+    card's memory rate."""
+    n_out, own_rows, slab_rows = pk._rows(p)
+    pairs = computed_pairs(p, tables, own, far)[0]
     nbytes = 4 * (slab_rows * slab.shape[1] + n_out * p.n_pad
                   + sum(t.numel() for t in tables))
     if own.data_ptr() != slab.data_ptr():
@@ -370,9 +447,11 @@ def compare(calls, label, far):
     return errs
 
 
-def time_ms(fn, reps):
-    """Mean device milliseconds per call, CUDA events around reps calls."""
-    fn()
+def time_ms(fn, reps, warm=True):
+    """Mean device milliseconds per call, CUDA events around reps calls
+    (after one untimed call when ``warm``)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -384,34 +463,48 @@ def time_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def engine_run(scene, params, dev, engine, steps, cfg_kw):
+    """run(state, springs, membranes) -> state: ``steps`` steps of the fastw
+    or fast engine on ``dev`` (fastw: no shell or tile overflow)."""
+    if engine == "fast":
+        cfg = F.compute_fast_config(scene.pos, params, **cfg_kw)
+        return F.make_fast_multi_step(params, scene.layout(), cfg, steps)
+    _, layout, cfg, ws = scene_setup(scene, params, dev, **cfg_kw)
+    run = W.make_fastw_multi_step(params, layout, cfg, steps,
+                                  return_diag=True, wall_static=ws)
+
+    def go(state, springs, membranes):
+        out, diag = run(state, springs, membranes)
+        check(int(diag["shell_overflow"]) == 0
+              and int(diag["tile_overflow"]) == 0,
+              f"overflow on {dev}: {diag}")
+        return out
+
+    return go
+
+
 def engine_vs_plain(scene, params, start, springs, membranes,
-                    kind=LIQUID_PARTICLE, what="liquid"):
+                    kind=LIQUID_PARTICLE, what="liquid", engine="fastw",
+                    configs=(dict(resort_every=1), dict(resort_every=3))):
     """The engine on cuda (kernels) and on cpu (plain versions), 10 steps
-    from ``start``; the largest displacement of the particles of ``kind``
-    is printed beside the difference."""
+    from ``start`` at each config; the largest displacement of the particles
+    of ``kind`` is printed beside the difference."""
     moving = (start.ptype == kind).cpu().numpy()
     pos0 = start.pos.cpu().numpy()
-    for r_every in (1, 3):
+    for cfg_kw in configs:
         pos, vel = {}, {}
         for dev in ("cuda", "cpu"):
             t0 = time.perf_counter()
-            _, layout, cfg, ws = scene_setup(scene, params, dev,
-                                             resort_every=r_every)
-            run = W.make_fastw_multi_step(params, layout, cfg, 10,
-                                          return_diag=True, wall_static=ws)
-            out, diag = run(to_device(start, dev),
-                            to_device(springs, dev),
-                            to_device(membranes, dev))
-            check(int(diag["shell_overflow"]) == 0
-                  and int(diag["tile_overflow"]) == 0,
-                  f"overflow on {dev}: {diag}")
+            out = engine_run(scene, params, dev, engine, 10, cfg_kw)(
+                to_device(start, dev), to_device(springs, dev),
+                to_device(membranes, dev))
             pos[dev] = out.pos.cpu().numpy()
             vel[dev] = out.vel.cpu().numpy()
             print(f"    {dev}: {time.perf_counter() - t0:.1f} s", flush=True)
         d = float(np.abs(pos["cuda"] - pos["cpu"]).max())
         dv = float(np.abs(vel["cuda"] - vel["cpu"]).max())
         moved = float(np.linalg.norm(pos["cpu"] - pos0, axis=1)[moving].max())
-        print(f"  resort_every {r_every}: max|dpos| cuda vs cpu {d:.3e} "
+        print(f"  {engine} {cfg_kw}: max|dpos| cuda vs cpu {d:.3e} "
               f"(max|dvel| {dv:.3e}); largest {what} displacement "
               f"{moved:.3e}", flush=True)
         check(np.isfinite(pos["cuda"]).all() and d <= ENGINE_TOL,
@@ -467,11 +560,12 @@ def timed_run(sim, steps):
     return time.perf_counter() - t0, dict(pk.LAUNCHES)
 
 
-def worm_integrity(sim, scene, params):
+def worm_integrity(sim, scene, params, parts=None):
     """The worm gate of ``bench.py``: springs hold (max strain < 0.5 over
     every spring) and the liquid's mean density is sane (rho/rho0 in
-    [0.5, 2]); the density is the engine's own time-t sum (one sort + the
-    raw rho* passes on the final state)."""
+    [0.5, 2]); the density is the engine's own time-t sum (one sort + its
+    density passes on the final state: ``parts``, the fastw engine's by
+    default)."""
     pos = sim.get_position()
     idx = scene.spring_idx
     used = idx >= 0
@@ -479,8 +573,9 @@ def worm_integrity(sim, scene, params):
     r = np.linalg.norm(a - pos[idx[used]], axis=1) * params.simulation_scale
     rest = scene.spring_rest[used]
     strain = float(np.max(np.abs(r - rest) / np.maximum(rest, 1e-9)))
-    parts = W._make_step_parts_w(params, sim.layout, sim._fast_cfg,
-                                 wall_static=sim._wall_static)
+    if parts is None:
+        parts = W._make_step_parts_w(params, sim.layout, sim._fast_cfg,
+                                     wall_static=sim._wall_static)
     rho = parts.density(sim.state, sim.springs, sim.membranes).cpu().numpy()
     l0, l1 = sim.layout.liquid_range
     check(np.isfinite(rho[l0:l1]).all(), "liquid density not finite")
@@ -576,19 +671,46 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  " + line.strip(), flush=True)
 
-    results = {key: phase(card, args.profile_steps)
-               for key, phase in PHASES.items() if key in only}
+    results = {}
+    for key, phase in PHASES.items():
+        if key in only:
+            t0 = time.perf_counter()
+            results[key] = phase(card, args.profile_steps)
+            print(f"phase {key}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
     if len(results) < len(PHASES):
         print(f"chip_smoke: only {sorted(results)} ran, no result",
               file=sys.stderr)
         return 2
-    kernels = results["worm"]
+    # each kernel's entry comes from the path that runs it at its main
+    # shapes; launches a step on every path beside it
+    kernels, per_path = {}, {}
+    for res in results.values():
+        if res:
+            kernels.update(res["kernels"])
+            per_path.update(res["launches"])
+    for key, entry in kernels.items():
+        entry["launches_per_step"] = {
+            path: n for path, counts in per_path.items()
+            if (n := counts.get(key, 0))}
+        check(entry["launches"] > 0, f"{key}: no launch on its path")
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def settled_small_box(scene, small):
+    """(state, springs, membranes) of the small box after SETTLE fastw steps
+    on the card: its pool rests on the floor."""
+    _, layout, cfg, ws = scene_setup(scene, small, "cuda")
+    state, springs, membranes = scene.device_state("cuda")
+    state = W.make_fastw_multi_step(small, layout, cfg, SETTLE,
+                                    wall_static=ws)(
+        state, springs, membranes)
+    return state, springs, membranes
 
 
 def small_box_phases(card, profile_steps):
@@ -597,10 +719,7 @@ def small_box_phases(card, profile_steps):
     small = SimParams(x_max=8 * H, y_max=8 * H, z_max=8 * H)
     scene = generate_liquid_box_scene(small, fill_fraction=0.5)
     _, layout, cfg, ws = scene_setup(scene, small, "cuda")
-    springs, membranes = scene.device_state("cuda")[1:]
-    state = W.make_fastw_multi_step(small, layout, cfg, SETTLE,
-                                    wall_static=ws)(
-        scene.device_state("cuda")[0], springs, membranes)
+    state, springs, membranes = settled_small_box(scene, small)
     compare(record_step_inputs(small, layout, cfg, ws, state, springs,
                                membranes), "small", box_edge(small))
 
@@ -756,23 +875,359 @@ def worm_phases(card, profile_steps):
         acc["bound_ms"] += mult * bound_ms
         acc["ops_ms"] += mult * bound_ms * (by == "operations")
 
-    # no single PyTorch call computes a windowed pair sum: library_ms null
-    return [dict(
+    return dict(
+        kernels=kernel_entries(per_kind, launches,
+                               "one step's launches, fastw, full worm"),
+        launches={"worm_fastw": {k: v / WORM_STEPS
+                                 for k, v in launches.items()}})
+
+
+def kernel_entries(per_kind, launches, scope):
+    """name -> the ``kernels`` JSON entry of each kernel kind accumulated
+    in ``per_kind`` (err, ms, plain_ms, bound_ms, ops_ms over one step's
+    launches). No single PyTorch call computes a windowed pair sum:
+    library_ms is null."""
+    return {kind: dict(
         name=kind, route="cuda", source=SOURCE, replaces=REPLACES[kind],
         launches=launches[kind], max_abs_err=acc["err"], ms=acc["ms"],
         plain_ms=acc["plain_ms"], bound_ms=acc["bound_ms"],
         bound_by=("operations" if 2 * acc["ops_ms"] >= acc["bound_ms"]
                   else "bytes"),
-        library_ms=None,
-        ms_scope="one step's launches at the full-worm shapes",
-    ) for kind, acc in per_kind.items()]
+        library_ms=None, ms_scope=scope,
+    ) for kind, acc in per_kind.items()}
 
 
-# name -> phase(card, profile_steps), in running order; "worm" returns the
-# kernels' result entries
+# ---------------------------------------------------------------------------
+# the fast engine (phases 11-15)
+# ---------------------------------------------------------------------------
+
+def record_fast_inputs(params, layout, cfg, state, springs, membranes):
+    """(pass, tables, own, slab, rows the engine uses) of the last call of
+    each pair pass in one sort + one step of the fast engine from ``state``:
+    the liquid passes from the kicked state (see ``kicked``), spring and
+    membrane from ``state`` as it is. The engine uses the force passes'
+    sums (viscsurf, paccel, boundary) on rows that are not walls (it zeroes
+    wall accelerations and pins walls: a wall row's surface sum counts pairs
+    of walls exactly h apart, where f32 roundings may differ), the membrane
+    sums on liquid rows, density and rho* on every row."""
+    parts = F._make_step_parts(params, layout, cfg)
+    ctx = {}
+    calls = F.record_step_inputs(
+        parts, kicked(state, rest_gap=REST_GAP * params.h), springs,
+        membranes, ctx_out=ctx)
+    not_wall = ctx["isb_s"][:cfg.n_pad] == 0
+    for name in ("viscsurf", "paccel", "boundary"):
+        calls[name] += (not_wall,)
+    expect = {"density", "rho_star", "viscsurf", "paccel", "boundary"}
+    if layout.n_elastic > 0:
+        still_ctx = {}
+        still = F.record_step_inputs(parts, state, springs, membranes,
+                                     ctx_out=still_ctx)
+        calls["membrane"] = still["membrane"] + (
+            still_ctx["liq_s"][:cfg.n_pad] > 0,)
+        expect.add("membrane")
+        if "spring" in still:
+            calls["spring"] = still["spring"]
+            expect.add("spring")
+    check(set(calls) == expect, f"passes called: {sorted(calls)}")
+    return calls
+
+
+def gated_vs_ungated(calls, label):
+    """The gated kernels of the sort-time passes (density, viscsurf,
+    paccel: every position they read is a sort-time one) against their
+    ungated kernels on the same inputs: max |diff| and the rows that
+    differ."""
+    for name in ("density", "viscsurf", "paccel"):
+        p, tables, own, slab = calls[name][:4]
+        g = p.kernel(tables, own, slab)
+        u = dataclasses.replace(p, sub=None).kernel(tables[:6], own, slab)
+        g, u = (o if isinstance(o, tuple) else (o,) for o in (g, u))
+        diff = torch.stack([(a - b).abs() for a, b in zip(g, u)]).amax(0)
+        print(f"  {label:5s} {name:9s} gated vs ungated (sub {p.sub}): "
+              f"max|diff| {float(diff.max()):.3e}, rows that differ "
+              f"{int((diff > 0).sum())} of {p.n_pad}", flush=True)
+
+
+def time_passes(calls, errs, far, card, label, data_work=None,
+                plain_reps=3):
+    """Kernel (CUDA events, 20 launches) and plain times, bound and
+    computed columns per particle of each recorded fast-engine pass;
+    returns launch key -> one step's totals (``kernel_entries``)."""
+    per_kind = {}
+    for name, (p, tables, own, slab, *_) in sorted(calls.items()):
+        mult = FAST_PASSES[name]
+        ms = time_ms(lambda: p.kernel(tables, own, slab), 20)
+        plain_ms = time_ms(lambda: p.plain(tables, own, slab), plain_reps,
+                           warm=plain_reps > 1)
+        pairs, bound_ms, by = pass_bound(p, tables, own, slab, far,
+                                         data_work)
+        rows = computed_pairs(p, tables, own, far)[1]
+        print(f"  {label:5s} {name:9s} {p.launch_key:12s} kernel {ms:9.4f} "
+              f"ms  plain {plain_ms:9.3f} ms  bound {bound_ms:8.5f} ms "
+              f"({by}, {pairs:.4g} candidate pairs, {pairs / rows:.1f} "
+              f"columns a particle)  (x{mult}/step) [{card}]", flush=True)
+        acc = per_kind.setdefault(p.launch_key, dict(
+            err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0))
+        acc["err"] = max(acc["err"], errs[name])
+        acc["ms"] += mult * ms
+        acc["plain_ms"] += mult * plain_ms
+        acc["bound_ms"] += mult * bound_ms
+        acc["ops_ms"] += mult * bound_ms * (by == "operations")
+    return per_kind
+
+
+def check_fast_run(sim, scene, steps, launches, per_step, label):
+    """A fast-engine path's checks: finite state, walls bitwise still, no
+    tile overflow, every launch key at exactly its count a step (others
+    0). Returns the overflow report (read and reset)."""
+    pos, vel = sim.get_position(), sim.get_velocity()
+    check(np.isfinite(pos).all() and np.isfinite(vel).all(),
+          f"{label}: non-finite state")
+    b0, b1 = sim.layout.boundary_range
+    check(np.array_equal(pos[b0:b1], scene.pos[b0:b1]),
+          f"{label}: walls moved")
+    ovf = sim.check_overflow()
+    check(ovf["tile_overflow"] == 0, f"{label}: overflow {ovf}")
+    for key, n in launches.items():
+        want = per_step.get(key, 0) * steps
+        check(n == want, f"{label} {key}: {n} launches in {steps} steps, "
+              f"expected {want}")
+    return ovf
+
+
+def first_period(sim, label):
+    """The first resort period in single-step chunks (a sort every step:
+    a fresh scene's start-up transient moves particles most); prints its
+    window drift."""
+    r = sim._fast_cfg.resort_every
+    sim.step(r - 1)
+    sim.step(1)
+    ovf = sim.check_overflow()
+    print(f"{label}: first {r} steps re-sorted every step: window drift "
+          f"{ovf['window_drift_h']:.4f} h", flush=True)
+
+
+def spring_strain(pos, scene, params):
+    """(max strain of the springs between elastic particles, max strain of
+    the springs anchored to walls or None)."""
+    idx = scene.spring_idx
+    used = idx >= 0
+    rows = np.repeat(scene.spring_rows, idx.shape[1])[used.ravel()]
+    cols = idx[used]
+    r = np.linalg.norm(pos[rows] - pos[cols], axis=1) * params.simulation_scale
+    rest = scene.spring_rest[used]
+    strain = np.abs(r - rest) / np.maximum(rest, 1e-9)
+    wall = scene.ptype[cols] == BOUNDARY_PARTICLE
+    return (float(strain[~wall].max()),
+            float(strain[wall].max()) if wall.any() else None)
+
+
+def small_fast_phases(card, profile_steps):
+    # 11. kernel vs plain, the small box on the fast engine, every pass of
+    # one step ungated and gated
+    small = SimParams(x_max=8 * H, y_max=8 * H, z_max=8 * H)
+    scene = generate_liquid_box_scene(small, fill_fraction=0.5)
+    state, springs, membranes = settled_small_box(scene, small)
+    far = box_edge(small)
+    print("fast engine, kernel vs plain (8h box, block 128, ccol 128):",
+          flush=True)
+    for sub in SUBS:
+        cfg = F.compute_fast_config(scene.pos, small, block=128, ccol=128,
+                                    sub=sub)
+        calls = record_fast_inputs(small, scene.layout(), cfg, state,
+                                   springs, membranes)
+        compare(calls, f"s{sub}", far)
+        if sub:
+            gated_vs_ungated(calls, f"s{sub}")
+
+    # 12. the fast engine on cuda vs cpu, from the settled state kicked
+    # gently
+    print("fast engine vs plain (8h box, 10 steps from the settled state "
+          "kicked down at 0.3 m/s):", flush=True)
+    engine_vs_plain(scene, small, kicked(state, speed=0.3, noise=0.05),
+                    springs, membranes, engine="fast",
+                    configs=[dict(block=128, ccol=128, resort_every=r,
+                                  sub=sub)
+                             for r in (1, 3) for sub in (None, 32)])
+
+
+def tiny_worm_phases(card, profile_steps):
+    # 13. the wall-anchored worm: auto picks the fast engine, whose springs
+    # take the gather fallback
+    params = SimParams(**TINY_WORM)
+    scene = generate_worm_scene(params)
+    sim = Simulator(scene, params, engine="auto", device="cuda")
+    check(sim.engine == "fast", f"auto resolved to {sim.engine}")
+    check(not sim.layout.springs_elastic_only,
+          "the worm's springs do not anchor to walls")
+    print(f"wall-anchored worm: {scene.counts}, n {scene.n_particles}, "
+          f"engine {sim.engine}, cfg {sim._fast_cfg}", flush=True)
+    first_period(sim, "wall-anchored worm")
+    steps = TINY_SETTLE - sim._fast_cfg.resort_every
+    dt, launches = timed_run(sim, steps)
+    per_step = dict(PER_STEP_DAM, membrane=1)
+    ovf = check_fast_run(sim, scene, steps, launches, per_step,
+                         "wall-anchored worm")
+    body, anchors = spring_strain(sim.get_position(), scene, params)
+    print(f"wall-anchored worm at step {sim.step_count}: {dt * 1e3 / steps:.4f}"
+          f" ms/step, window drift {ovf['window_drift_h']:.4f} h, launches "
+          f"{launches}; max strain {body:.4f} (springs between elastic "
+          f"particles, < 0.5), {anchors:.4f} (springs anchored to walls, "
+          f"< 1) [{card}]", flush=True)
+    check(body < 0.5, f"max strain {body} >= 0.5 on the worm's springs")
+    check(anchors < 1.0, f"max strain {anchors} >= 1 on the wall anchors")
+
+    # the fallback's accelerations on the card against the cpu
+    st = sim.state
+    a_cu = elastic_accel(st.pos, sim.springs, st.muscle_activation, params)
+    a_cpu = elastic_accel(st.pos.cpu(), to_device(sim.springs, "cpu"),
+                          st.muscle_activation.cpu(), params)
+    d = float((a_cu.cpu() - a_cpu).abs().max())
+    top = float(a_cpu.abs().max())
+    print(f"  elastic_accel cuda vs cpu: max|diff| {d:.3e}, max|a| "
+          f"{top:.3e} ({scene.counts['springs']} springs)", flush=True)
+    check(top > 0.0 and d <= KERNEL_TOL * top,
+          f"elastic_accel cuda vs cpu {d} > {KERNEL_TOL} * {top}")
+
+    print(f"fast engine vs plain (wall-anchored worm, 10 steps from step "
+          f"{sim.step_count}):", flush=True)
+    engine_vs_plain(scene, params, st, sim.springs, sim.membranes,
+                    kind=ELASTIC_PARTICLE, what="elastic", engine="fast",
+                    configs=[dict(resort_every=10)])
+    return dict(kernels={}, launches={"tiny_worm_fast": {
+        k: v / steps for k, v in launches.items()}})
+
+
+def dam_break_phases(card, profile_steps):
+    # 14. the dam-break: the 918k-particle single-card configuration
+    params = SimParams()
+    t0 = time.perf_counter()
+    scene = generate_liquid_box_scene(params, fill_fraction=0.8)
+    sim = Simulator(scene, params, engine="auto", device="cuda")
+    check(sim.engine == "fast", f"auto resolved to {sim.engine}")
+    n = scene.n_particles
+    print(f"dam-break: {scene.counts}, n {n}, engine {sim.engine}, cfg "
+          f"{sim._fast_cfg}, set up in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    sim.step(DAM_WARMUP)
+    warm = sim.check_overflow()
+    dt, launches = timed_run(sim, DAM_STEPS)
+    ms_step = dt * 1e3 / DAM_STEPS
+    ovf = check_fast_run(sim, scene, DAM_STEPS, launches, PER_STEP_DAM,
+                         "dam-break")
+    pos = sim.get_position()
+    l0, l1 = sim.layout.liquid_range
+    lo, hi = np.asarray(params.box_min), np.asarray(params.box_max)
+    check(bool(((pos[l0:l1] >= lo) & (pos[l0:l1] <= hi)).all()),
+          "liquid left the box")
+    print(f"dam-break: {DAM_STEPS} steps in {dt:.3f} s: {ms_step:.4f} "
+          f"ms/step, {n * 1e3 / ms_step:.6g} particle-steps/s, window drift "
+          f"{warm['window_drift_h']:.4f} h (warm-up period), "
+          f"{ovf['window_drift_h']:.4f} h (timed), launches {launches} "
+          f"[{card}]", flush=True)
+
+    # kernel vs plain on the final state, timed at those shapes (the plain
+    # versions once each: they gather ~10^9 pairs a call)
+    far = box_edge(params)
+    calls = record_fast_inputs(params, sim.layout, sim._fast_cfg, sim.state,
+                               sim.springs, sim.membranes)
+    errs = compare(calls, "dam", far)
+    per_kind = time_passes(calls, errs, far, card, "dam", plain_reps=1)
+    return dict(
+        kernels=kernel_entries({"density": per_kind["density"]}, launches,
+                               "one step's launches, fast, dam-break"),
+        launches={"dambreak_fast": {k: v / DAM_STEPS
+                                    for k, v in launches.items()}})
+
+
+def fast_worm_phases(card, profile_steps):
+    # 15. the full worm on the fast engine, TPU-tuned config, ungated and
+    # gated at sub 32
+    params = SimParams()
+    scene = generate_worm_scene(params)
+    sim = Simulator(scene, params, engine="fast", device="cuda",
+                    fast_config=R4)
+    print(f"fast worm: {scene.counts}, cfg {sim._fast_cfg}", flush=True)
+    first_period(sim, "fast worm")
+    sim.step(FAST_WORM_STEPS - sim._fast_cfg.resort_every)
+    parts = F._make_step_parts(params, sim.layout, sim._fast_cfg)
+    worm_integrity(sim, scene, params, parts)
+    ovf = sim.check_overflow()
+    print(f"fast worm: window drift {ovf['window_drift_h']:.4f} h after "
+          "the first period", flush=True)
+
+    # the same state, the gated config: 120 timed steps of each in turn
+    sim32 = Simulator(scene, params, engine="fast", device="cuda",
+                      fast_config=dict(R4, sub=32))
+    runs, launches_by = {}, {}
+    for label, s, per_step in (
+            ("fast worm", sim, PER_STEP_FAST_WORM),
+            ("fast worm sub 32", sim32,
+             {k + "_sub" if k in pk.GATED else k: v
+              for k, v in PER_STEP_FAST_WORM.items()})):
+        if s is sim32:
+            sim32.state = sim.state
+        dt, launches = timed_run(s, FAST_WORM_TIMED)
+        check_fast_run(s, scene, FAST_WORM_TIMED, launches, per_step, label)
+        runs[label] = dt * 1e3 / FAST_WORM_TIMED
+        launches_by[label] = launches
+        print(f"{label}: {FAST_WORM_TIMED} steps: {runs[label]:.4f} ms/step, "
+              f"{scene.n_particles * 1e3 / runs[label]:.6g} particle-steps/s"
+              f", launches {launches} [{card}]", flush=True)
+    worm_integrity(sim32, scene, params, parts)
+
+    far = box_edge(params)
+    # what the gate saves at the TPU sweep's tile width and at this one:
+    # computed columns a particle and kernel time of the density pass on
+    # the final state's own sort
+    for ccol in (128, R4["ccol"]):
+        counts, times = [], []
+        for sub in (None, 32):
+            cfg = F.compute_fast_config(scene.pos, params, block=R4["block"],
+                                        ccol=ccol, sub=sub)
+            gparts = F._make_step_parts(params, sim.layout, cfg)
+            ctx, _ = gparts.sort_ctx(sim32.state, sim.springs,
+                                     sim.membranes)
+            pack = F._pack(gparts.carry_of(ctx, sim32.state)[:3])
+            p = gparts.passes["density"]
+            pairs, rows = computed_pairs(p, ctx["rho_tables"], pack, far)
+            counts.append(pairs / rows)
+            times.append(time_ms(
+                lambda: p.kernel(ctx["rho_tables"], pack, pack), 20))
+        print(f"  fast worm, ccol {ccol}: density pass computes "
+              f"{counts[0]:.1f} columns a particle ungated, {counts[1]:.1f} "
+              f"at sub 32 ({counts[1] / counts[0]:.3f}); kernel "
+              f"{times[0]:.4f} / {times[1]:.4f} ms [{card}]", flush=True)
+    entries = {}
+    for label, s in (("fworm", sim), ("fw32", sim32)):
+        calls = record_fast_inputs(params, s.layout, s._fast_cfg, sim32.state,
+                                   s.springs, s.membranes)
+        data_work = elastic_input_counts(params, calls, label,
+                                         names=("spring", "membrane"))
+        errs = compare(calls, label, far)
+        if s is sim32:
+            gated_vs_ungated(calls, label)
+        per_kind = time_passes(calls, errs, far, card, label, data_work)
+        if s is sim32:
+            entries = kernel_entries(
+                {k: v for k, v in per_kind.items() if k.endswith("_sub")},
+                launches_by["fast worm sub 32"],
+                "one step's launches, fast, full worm, sub 32")
+    return dict(kernels=entries, launches={
+        "worm_fast": {k: v / FAST_WORM_TIMED
+                      for k, v in launches_by["fast worm"].items()},
+        "worm_fast_sub32": {k: v / FAST_WORM_TIMED for k, v in
+                            launches_by["fast worm sub 32"].items()}})
+
+
+# name -> phase(card, profile_steps), in running order; a phase that runs a
+# kernel's main path returns its ``kernels`` entries and launches a step
 PHASES = {"small": small_box_phases, "box": box_phases,
           "rworm": reduced_worm_kernels, "rworm_engine": reduced_worm_engine,
-          "worm": worm_phases}
+          "worm": worm_phases, "small_fast": small_fast_phases,
+          "tiny_worm": tiny_worm_phases, "dam": dam_break_phases,
+          "fast_worm": fast_worm_phases}
 
 
 if __name__ == "__main__":

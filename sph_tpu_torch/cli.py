@@ -1,7 +1,8 @@
 """Command-line interface (counterpart of ``sph_tpu/cli.py``).
 
     python -m sph_tpu_torch run --scene worm|box [--box 30,20,250]
-        [--fill 0.15] --steps N [--engine auto|fastw] [--device cuda|cpu]
+        [--fill 0.15] --steps N [--engine auto|fast|fastw]
+        [--device cuda|cpu] [--ccol N] [--ccol-c N] [--resort-every N]
 
 prints the same scene and timing lines as ``python -m sph_tpu run``. Only
 the ``run`` subcommand on the generated scenes is ported so far.
@@ -36,10 +37,12 @@ def cmd_run(args) -> int:
         scene = generate_liquid_box_scene(params, fill_fraction=args.fill)
     print(f"scene: {scene.counts} ({time.time() - t0:.1f}s)")
 
-    fck = ({"resort_every": args.resort_every}
-           if args.resort_every is not None else None)
+    fck = {k: v for k, v in (
+        ("ccol", args.ccol), ("ccol_c", args.ccol_c),
+        ("resort_every", args.resort_every)) if v is not None}
     sim = Simulator(scene, params, engine=args.engine, device=args.device,
-                    fast_config=fck)
+                    fast_config=fck or None)
+    print(f"engine: {sim.engine}")
     chunk = max(1, args.report_every)
     done = 0
     while done < args.steps:
@@ -68,12 +71,21 @@ def main(argv=None) -> int:
                    help="liquid fill fraction for the box scene")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--report-every", type=int, default=100)
-    p.add_argument("--engine", default="auto", choices=["auto", "fastw"],
-                   help="fastw = wall-compact engine (auto picks it on "
-                        "wall-heavy scenes)")
+    p.add_argument("--engine", default="auto",
+                   choices=["auto", "fast", "fastw"],
+                   help="fast = blocked pair engine (walls in the carry); "
+                        "fastw = wall-compact engine (static walls leave "
+                        "the hot carry; auto picks it on wall-heavy "
+                        "scenes)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (Hopper kernels) or cpu "
                         "(plain PyTorch pair passes)")
+    p.add_argument("--ccol", type=int, default=None,
+                   help="main pair-pass tile width (multiple of 128; "
+                        "default: fast 256, fastw 512)")
+    p.add_argument("--ccol-c", type=int, default=None,
+                   help="compact-pass (boundary/spring/membrane) tile "
+                        "width (default: fast ccol, fastw 256)")
     p.add_argument("--resort-every", type=int, default=None,
                    help="steps between spatial resorts (default 30)")
     p.set_defaults(fn=cmd_run)

@@ -1,0 +1,53 @@
+"""Elastic (spring) and muscle contraction forces by gather (counterpart of
+``sph_tpu/core/elastic.py``).
+
+The fast engine's fallback for scenes whose springs anchor outside the
+elastic block (to walls, say), where the compact-slab spring pass cannot
+address the partner rows: per elastic row, walk its padded spring list;
+Hooke acceleration ``-(r_hat) * (r - r0) * k`` plus a contraction term
+``-(r_hat) * signal * muscle_force`` when the spring's muscle is active. The
+activation is a gather from the activation table where sph_tpu contracts a
+one-hot matrix with it at full precision: the same f32 values.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import SimParams
+from .state import Springs
+
+
+def elastic_accel(pos: torch.Tensor, springs: Springs,
+                  activation: torch.Tensor, params: SimParams
+                  ) -> torch.Tensor:
+    """Spring + muscle acceleration per spring row, [Ne, 3].
+
+    ``pos`` [N, 3] (every id of ``springs`` indexes it; the fast engine
+    passes sorted positions and springs translated to sorted ids);
+    ``activation`` [MUSCLE_COUNT]."""
+    i = springs.row_ids.long()                       # [Ne]
+    valid = springs.idx >= 0                         # [Ne, 32]
+    j = torch.clamp(springs.idx, min=0).long()
+
+    scale = float(np.float32(params.simulation_scale))
+    d = (pos[i][:, None, :] - pos[j]) * scale        # [Ne, 32, 3], meters
+    r = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+                   + d[..., 2] * d[..., 2])
+    ok = valid & (r != 0.0)
+    inv_r = 1.0 / torch.clamp(r, min=1e-30)
+
+    stretch = r - springs.rest
+    coef = torch.where(ok, -stretch * float(np.float32(params.k_spring)),
+                       0.0)
+
+    mid = springs.muscle.long()                      # [Ne, 32], 0 = plain
+    n_act = activation.shape[0]
+    known = (mid >= 1) & (mid <= n_act)              # other ids drive nothing
+    act = torch.cat([activation.new_zeros(1), activation])[
+        torch.where(known, mid, 0)]
+    m_on = ok & known & (act > 0.0)
+    coef = coef + torch.where(
+        m_on, -act * float(np.float32(params.muscle_force)), 0.0)
+
+    return (d * (coef * inv_r)[..., None]).sum(dim=1)

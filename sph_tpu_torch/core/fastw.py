@@ -26,7 +26,6 @@ Differences from the JAX module:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
 
 import numpy as np
 import torch
@@ -39,6 +38,7 @@ from ..ops import pair_kernels as pk
 from .state import FluidState, Membranes, Springs
 from .step import SceneLayout
 from . import fast as F
+from .fast import StepParts, _table_overflow, record_step_inputs  # noqa: F401
 
 ALIGN = pk.ALIGN
 
@@ -191,7 +191,7 @@ def precompute_wall_static(pos, normal, params: SimParams,
     nx, ny, nz = cfg.dims
     pw = np.asarray(pos, np.float32)[wall_lo:wall_hi]
     nw = np.asarray(normal, np.float32)[wall_lo:wall_hi]
-    # mirror _cells in f32 so cell assignment matches the device path
+    # mirror fast._cells in f32 so cell assignment matches the device path
     cell = np.float32(1.0 / params.h)
     lo = np.asarray(params.box_min, np.float32)
     c = np.clip(((pw - lo) * cell).astype(np.int32), 0,
@@ -270,18 +270,6 @@ def _gate(tables, active):
     return (aln, lo, hi, s0, torch.where(active, cnt, 0), ob)
 
 
-def _table_overflow(tables, ccol, n_blocks):
-    """Tiles the TPU driver's flat tile ring would drop for this table set
-    (static caps of ``sph_tpu/ops/pair_kernels._flat_tile_tables``). The
-    port's kernels have no caps; the count keeps the diagnostic comparable
-    across the two packages."""
-    cnt = tables[4]
-    smax = max(8, 16384 // ccol)
-    cap = n_blocks * max(4, 6144 // ccol)
-    return (torch.clamp(cnt.max() - smax, min=0)
-            + torch.clamp(cnt.sum() - cap, min=0)).to(torch.int32)
-
-
 def _shell_of(cid_m, cid_w_s, cfg: FastWConfig):
     """Shell membership flag per SORTED wall: its cell lies within the
     ``dilate``-cell box dilation of the moving-occupied cells."""
@@ -297,22 +285,6 @@ def _shell_of(cid_m, cid_w_s, cfg: FastWConfig):
 
 def _pad_to(a, width, fill=0.0):
     return torch.cat([a, a.new_full((width - a.shape[0],), fill)])
-
-
-@dataclasses.dataclass
-class StepParts:
-    """The engine's stages plus its configured pair passes. ``inner_step``
-    looks the passes up in ``passes`` at call time, so a caller may wrap one
-    (e.g. to record its inputs)."""
-
-    sort_ctx: Callable
-    carry_of: Callable
-    inner_step: Callable
-    unsort_state: Callable
-    passes: dict
-    # density(state, springs, membranes) -> [n] time-t density of the moving
-    # particles from the engine's own rho* sums (walls: NaN)
-    density: Callable
 
 
 def _make_step_parts_w(params: SimParams, layout: SceneLayout,
@@ -369,7 +341,7 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
 
     n = layout.n_particles
     n_mov, n_wall = cfg.n_mov, cfg.n_wall
-    nx, ny, nz = cfg.dims
+    nx = cfg.dims[0]
     npen = cfg.n_pencils
     far = float(f32(
         max(params.x_max, params.y_max, params.z_max) + 100.0 * params.h))
@@ -391,25 +363,14 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
     hi_box = [float(f32(b - 1e-6)) for b in params.box_max]
     # pad rows of the moving space are pinned (they carry `far`)
     pad_mask = torch.arange(cfg.n_pad, device=dev) >= n_mov
-    cell = float(f32(1.0 / params.h))
-    box_lo = [float(f32(b)) for b in params.box_min]
-
-    def _cells(px, py, pz):
-        # f32 arithmetic and truncating casts: bitwise the JAX cell ids
-        cx = torch.clamp(((px - box_lo[0]) * cell).to(torch.int32), 0, nx - 1)
-        cy = torch.clamp(((py - box_lo[1]) * cell).to(torch.int32), 0, ny - 1)
-        cz = torch.clamp(((pz - box_lo[2]) * cell).to(torch.int32), 0, nz - 1)
-        pencil = cx + nx * cz
-        return pencil, cy + ny * pencil
 
     def sort_ctx(state: FluidState, springs: Springs, membranes: Membranes):
-        pm = state.pos[mov_ids]
-        pencil_m, cid_m = _cells(pm[:, 0], pm[:, 1], pm[:, 2])
+        pencil_m, cid_m = F._cells(state.pos[mov_ids], params, cfg.dims)
         order = torch.argsort(cid_m, stable=True)
         orig_of_sorted = mov_ids[order]             # [n_mov] original ids
         pencil_ms = pencil_m[order]
-        tables_m, pstart_m, pranges = F._window_tables(pencil_ms,
-                                                       cfg.mov_cfg())
+        tables_m, pstart_m, pranges, _ = F._window_tables(pencil_ms,
+                                                          cfg.mov_cfg())
         bidx = torch.arange(nb_m, dtype=torch.int32, device=dev)
         first_m = pencil_ms[torch.clamp(bidx * B, max=n_mov - 1).long()]
         last_m = pencil_ms[
@@ -830,31 +791,6 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
 
     return StepParts(sort_ctx, carry_of, inner_step, unsort_state, passes,
                      density)
-
-
-def record_step_inputs(parts: StepParts, state: FluidState, springs: Springs,
-                       membranes: Membranes, ctx_out: dict | None = None
-                       ) -> dict:
-    """name -> (PairPass, tables, own_pack, slab_pack) of the last call of
-    each pair pass in one sort + one step from ``state`` (the stepped state
-    is discarded; ``parts.passes`` is restored). ``ctx_out``, when given,
-    receives the sort context (e.g. ``liq_s``, the liquid flag of the sorted
-    rows: the membrane sums are used on liquid rows only)."""
-    calls = {}
-    passes = dict(parts.passes)
-    for name, p in passes.items():
-        def rec(tables, own, slab, _name=name, _p=p):
-            calls[_name] = (_p, tables, own, slab)
-            return _p(tables, own, slab)
-        parts.passes[name] = rec
-    try:
-        ctx, _ = parts.sort_ctx(state, springs, membranes)
-        if ctx_out is not None:
-            ctx_out.update(ctx)
-        parts.inner_step(ctx, parts.carry_of(ctx, state))
-    finally:
-        parts.passes.update(passes)
-    return calls
 
 
 def make_fastw_multi_step(params, layout, cfg: FastWConfig,

@@ -19,7 +19,7 @@ SRC = Path(__file__).resolve().parent / "csrc" / "pair_pass.cu"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
-KINDS = ("rho_star", "viscsurf", "paccel", "boundary", "spring",
+KINDS = ("density", "rho_star", "viscsurf", "paccel", "boundary", "spring",
          "membrane")
 
 _lib = None
@@ -70,8 +70,8 @@ def load() -> ctypes.CDLL:
                           ctypes.c_float)
         for kind in KINDS:
             fn = getattr(lib, "sph_pair_" + kind)
-            fn.argtypes = [p, i64, p, i64, p, p, p, p, p, i32, i32, i32,
-                           f, f, f, f, i32, p]
+            fn.argtypes = [p, i64, p, i64, p, p, p, p, p, p, i32, p, i32,
+                           i32, i32, f, f, f, f, i32, p]
             fn.restype = i32
         lib.sph_cuda_error_string.argtypes = [i32]
         lib.sph_cuda_error_string.restype = ctypes.c_void_p

@@ -1,7 +1,11 @@
-// Blocked all-pairs passes of the wall-compact (fastw) engine, for Hopper.
+// Blocked all-pairs passes of the fast and wall-compact engines, for Hopper.
 //
-// Replaces the Pallas TPU driver sph_tpu/ops/pair_kernels.py:_make_pass and
-// six of its tile functions:
+// Replaces the Pallas TPU kernels sph_tpu/ops/pair_kernels.py:_make_pass and
+// _make_sub_pass (the subgroup gate, template flag Gated below) and seven of
+// their tile functions:
+//   Density  <- sph_tpu/ops/pair_kernels.py:make_density_pass, and
+//               make_rho_star_pass(raw=False) (the same function of the
+//               iteration pack)
 //   RhoStar  <- sph_tpu/ops/pair_kernels.py:make_rho_star_pass (raw sums)
 //   ViscSurf <- sph_tpu/ops/pair_kernels.py:make_viscsurf_pass
 //   PAccel   <- sph_tpu/ops/pair_kernels.py:make_paccel_pass
@@ -29,7 +33,7 @@
 // skipped, own rows beyond the own width write zeros.
 //
 // Shared memory per CTA = slab rows x ccol x 4 B, one tile, dynamic. The
-// four liquid passes stage 3-7 rows (at most 7 x 512 x 4 B = 14 KB).
+// five liquid passes stage 3-7 rows (at most 7 x 512 x 4 B = 14 KB).
 // Membrane stages 45 of its pack's 48 rows (the x(t) rows are not read):
 // 45 x 256 x 4 B = 46,080 B, under the 48 KB default. Spring stages
 // 3 + 3 * n_slots rows, a scene property passed at run time: 51 rows x 256
@@ -37,8 +41,9 @@
 // launcher opts in with cudaFuncAttributeMaxDynamicSharedMemorySize (the
 // card allows 227 KB a CTA).
 //
-// What bounds it on this card: pair arithmetic, for all six. A moving row
-// meets ~1.6k candidate columns per liquid pass (~13-29 flops each); slab
+// What bounds it on this card: pair arithmetic, for all seven. A moving row
+// meets ~1.6k candidate columns per liquid pass (~13-29 flops each; Density
+// 13, as RhoStar: its epilogue is one clamp a row, fused into store); slab
 // bytes are reused from shared memory by all 256 rows of the block, so
 // device-memory traffic is small. Spring compares the own row's sorted id
 // with each column's n_slots partner ids (4 operations a slot, ~90 a pair
@@ -48,7 +53,23 @@
 // where the weight is nonzero: the sums are unchanged, every skipped term
 // is w = 0. The loads of a tile are not overlapped with the compute of the
 // previous one (no cp.async/TMA double buffering), and no per-warp tile skip
-// is applied; both are later work.
+// is applied to the fastw passes; both are later work.
+//
+// The subgroup gate (Gated = true; Density, ViscSurf, PAccel). A block's
+// window is the union of its rows' reach: a 256-row block spans several
+// pencils, so every row meets the columns of all of them. With the gate,
+// rows g*sub .. (g+1)*sub-1 compute a tile only when its columns
+// [off, off + ccol) overlap one of the group's three dz-band windows
+// [glo, ghi) (tables at (3b + dz) * (block/sub) + g). Each thread loads its
+// group's six window bounds into registers once; per tile the test is six
+// integer compares. What it saves is the pair arithmetic that bounds these
+// passes: on the worm the JAX records count 1,617 -> 819 computed columns a
+// particle at sub 32, ccol 128 (sph_tpu/core/fast.py:55-60). At sub 32 a
+// group is one warp and the skip is warp-uniform (no divergence); at sub 8
+// and 16 lanes of a warp idle while others compute. Every thread still
+// stages the tile and meets both barriers. A skipped term is an exact zero
+// at sort time (the windows are the maskless windows of the group), and the
+// tiles and columns keep their order, so a row's sum is the ungated one.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (no --use_fast_math: sqrtf, rsqrtf and division keep
@@ -57,6 +78,32 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+struct Density {
+  // slab rows: x, y, z (the main pack, or the predicted positions)
+  __host__ __device__ constexpr int slab_rows() const { return 3; }
+  struct Own { float x, y, z; };
+  struct Acc { float s; };
+  float h2, self3, inv_h6, c_rho;
+
+  __device__ Own load(const float* own, long long w, long long i) const {
+    return {own[i], own[w + i], own[2 * w + i]};
+  }
+  __device__ void pair(const Own& o, const float* t, int ccol, int j,
+                       Acc& a) const {
+    const float dx = o.x - t[j];
+    const float dy = o.y - t[ccol + j];
+    const float dz = o.z - t[2 * ccol + j];
+    const float q = fmaxf(h2 - (dx * dx + dy * dy + dz * dz), 0.0f);
+    a.s += q * q * q;
+  }
+  // the wrapper's epilogue, fused: the self term (included in the sum) is
+  // subtracted exactly as f32 (h2 h2) h2, then scaled and clamped
+  __device__ void store(float* out, long long n, long long i,
+                        const Acc& a) const {
+    out[i] = c_rho * fmaxf((a.s - self3) * inv_h6, 1.0f);
+  }
+};
 
 struct RhoStar {
   // slab rows: predicted x, y, z
@@ -289,12 +336,13 @@ struct Membrane {
   }
 };
 
-template <class P>
+template <class P, bool Gated>
 __global__ void __launch_bounds__(1024)
 pair_pass(P p, const float* __restrict__ own, long long own_w,
           const float* __restrict__ slab, long long slab_w,
           const int* __restrict__ aln, const int* __restrict__ s0,
           const int* __restrict__ cnt, const int* __restrict__ ob,
+          const int* __restrict__ glo, const int* __restrict__ ghi, int sub,
           float* __restrict__ out, int ccol) {
   extern __shared__ float tile[];  // [slab_rows][ccol]
   const int b = blockIdx.x;
@@ -306,6 +354,16 @@ pair_pass(P p, const float* __restrict__ own, long long own_w,
   const bool live = row >= 0 && row < own_w;
   const typename P::Own o = p.load(own, own_w, live ? row : 0);
   typename P::Acc acc{};
+  // the gate: this thread's group's three column windows
+  int wlo[3] = {0, 0, 0}, whi[3] = {0, 0, 0};
+  if (Gated) {
+    const int ng = nthr / sub;
+    const int g = tid / sub;
+    for (int d = 0; d < 3; ++d) {
+      wlo[d] = glo[(3 * b + d) * ng + g];
+      whi[d] = ghi[(3 * b + d) * ng + g];
+    }
+  }
 
   const int n_rows = p.slab_rows();
   const int n_s = cnt[b];
@@ -323,7 +381,14 @@ pair_pass(P p, const float* __restrict__ own, long long own_w,
       for (int j = tid; j < ncol; j += nthr) tile[r * ccol + j] = src[j];
     }
     __syncthreads();
-    if (live) {
+    bool on = live;
+    if (Gated) {
+      const long long end = off + ccol;
+      on = on && ((whi[0] > off && wlo[0] < end) ||
+                  (whi[1] > off && wlo[1] < end) ||
+                  (whi[2] > off && wlo[2] < end));
+    }
+    if (on) {
 #pragma unroll 4
       for (int j = 0; j < ncol; ++j) p.pair(o, tile, ccol, j, acc);
     }
@@ -332,59 +397,74 @@ pair_pass(P p, const float* __restrict__ own, long long own_w,
   p.store(out, n_pad, i_out, acc);
 }
 
-template <class P>
+template <bool Gated, class P>
 int launch(const P& p, const float* own, long long own_w, const float* slab,
            long long slab_w, const int* aln, const int* s0, const int* cnt,
-           const int* ob, float* out, int n_blocks, int block, int ccol,
-           void* stream) {
+           const int* ob, const int* glo, const int* ghi, int sub,
+           float* out, int n_blocks, int block, int ccol, void* stream) {
   if (n_blocks <= 0) return (int)cudaGetLastError();
+  if (Gated && (sub <= 0 || block % sub != 0 || !glo || !ghi))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * p.slab_rows() * (size_t)ccol;
   if (smem > 48 * 1024) {  // opt in on every such launch: the grant is per
                            // device, and the call is cheap beside a launch
     cudaError_t e = cudaFuncSetAttribute(
-        pair_pass<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        pair_pass<P, Gated>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  pair_pass<P><<<n_blocks, block, smem, (cudaStream_t)stream>>>(
-      p, own, own_w, slab, slab_w, aln, s0, cnt, ob, out, ccol);
+  pair_pass<P, Gated><<<n_blocks, block, smem, (cudaStream_t)stream>>>(
+      p, own, own_w, slab, slab_w, aln, s0, cnt, ob, glo, ghi, sub, out,
+      ccol);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// glo, ghi, sub: the gate's windows and group size; null, null, 0 for the
+// ungated kernel (the only one of the passes without a gated form)
 #define SPH_PAIR_ARGS                                                       \
   const float *own, long long own_w, const float *slab, long long slab_w,  \
       const int *aln, const int *s0, const int *cnt, const int *ob,        \
-      float *out, int n_blocks, int block, int ccol, float c0, float c1,   \
-      float c2, float c3, int i0, void *stream
-#define SPH_PAIR_FWD \
-  own, own_w, slab, slab_w, aln, s0, cnt, ob, out, n_blocks, block, ccol, stream
+      const int *glo, const int *ghi, int sub, float *out, int n_blocks,   \
+      int block, int ccol, float c0, float c1, float c2, float c3, int i0, \
+      void *stream
+#define SPH_PAIR_FWD                                                        \
+  own, own_w, slab, slab_w, aln, s0, cnt, ob, glo, ghi, sub, out,          \
+      n_blocks, block, ccol, stream
+#define SPH_UNGATED(P) \
+  (sub != 0 ? (int)cudaErrorInvalidValue : launch<false>(P, SPH_PAIR_FWD))
+#define SPH_GATED(P) \
+  (sub != 0 ? launch<true>(P, SPH_PAIR_FWD) : launch<false>(P, SPH_PAIR_FWD))
 
 extern "C" {
 
+int sph_pair_density(SPH_PAIR_ARGS) {
+  return SPH_GATED((Density{c0, c1, c2, c3}));
+}
+
 int sph_pair_rho_star(SPH_PAIR_ARGS) {
-  return launch(RhoStar{c0}, SPH_PAIR_FWD);
+  return SPH_UNGATED(RhoStar{c0});
 }
 
 int sph_pair_viscsurf(SPH_PAIR_ARGS) {
-  return launch(ViscSurf{c0, c1, c2}, SPH_PAIR_FWD);
+  return SPH_GATED((ViscSurf{c0, c1, c2}));
 }
 
 int sph_pair_paccel(SPH_PAIR_ARGS) {
-  return launch(PAccel{c0, c1, c2, c3}, SPH_PAIR_FWD);
+  return SPH_GATED((PAccel{c0, c1, c2, c3}));
 }
 
 int sph_pair_boundary(SPH_PAIR_ARGS) {
-  return launch(Boundary{c0, c1}, SPH_PAIR_FWD);
+  return SPH_UNGATED((Boundary{c0, c1}));
 }
 
 int sph_pair_spring(SPH_PAIR_ARGS) {
-  return launch(Spring{c0, c1, c2, c3, i0}, SPH_PAIR_FWD);
+  return SPH_UNGATED((Spring{c0, c1, c2, c3, i0}));
 }
 
 int sph_pair_membrane(SPH_PAIR_ARGS) {
-  return launch(Membrane{c0}, SPH_PAIR_FWD);
+  return SPH_UNGATED(Membrane{c0});
 }
 
 const char* sph_cuda_error_string(int err) {

@@ -1,10 +1,10 @@
-"""Blocked all-pairs passes of the wall-compact engine: Hopper kernels and
-their plain PyTorch versions.
+"""Blocked all-pairs passes of the fast engines: Hopper kernels and their
+plain PyTorch versions.
 
-Counterpart of ``sph_tpu/ops/pair_kernels.py`` for the six passes the
-fastw step runs (rho*, viscosity/surface, pressure force, boundary, and on
-scenes with elastic matter spring and membrane). The contract is the JAX
-one:
+Counterpart of ``sph_tpu/ops/pair_kernels.py`` for the seven passes the fast
+and wall-compact steps run (time-t density, rho*, viscosity/surface,
+pressure force, boundary, and on scenes with elastic matter spring and
+membrane). The contract is the JAX one:
 
 * particles are cell-sorted; an own block is ``block`` consecutive rows;
 * ``tables`` is the 6-tuple ``(aln, lo, hi, s0, cnt, ob)`` of int32 chunk
@@ -20,6 +20,16 @@ one:
 * each pass returns ``n_outputs`` f32 vectors of ``n_blocks * block`` rows,
   post-scaled by the same constants as the JAX wrappers.
 
+Subgroup gate (``sub``, the counterpart of ``_make_sub_pass``): with
+``0 < sub < block`` a pass takes the 8-tuple tables, the 6-tuple plus
+``glo``, ``ghi``: int32 ``[n_blocks * 3 * (block // sub)]``, the unmerged
+column window ``[glo, ghi)`` of each (block b, dz band, subgroup g) at index
+``(3b + dz) * (block // sub) + g``. Rows ``g*sub .. (g+1)*sub - 1`` of a block
+compute a tile only when its columns ``[off, off + ccol)`` overlap one of
+their group's three windows. A skipped (tile, group) term is an exact zero at
+sort time (the maskless invariant holds per subgroup), so the sums and their
+order are unchanged.
+
 Unlike the TPU driver there is no flat tile table with static caps: every
 tile a table lists is computed. A tile column beyond the slab pack's width is
 skipped (bounds check), which the tables never produce: the last tile of a
@@ -27,7 +37,8 @@ window ends before ``end + ccol <= width``.
 
 Dispatch: a pass called on CPU tensors runs its plain version; on CUDA
 tensors it launches the kernel (``csrc/pair_pass.cu``) or raises. Each kernel
-launch adds one to ``LAUNCHES[kind]``.
+launch adds one to ``LAUNCHES[kind]``, a gated one to ``LAUNCHES[kind +
+"_sub"]``.
 """
 from __future__ import annotations
 
@@ -76,6 +87,7 @@ def spr_cols(n_slots: int) -> int:
 # spring pass's slab rows depend on its slot count (see ``_rows``). The
 # membrane pass reads no x(t) row of the slab.
 _SPECS = {
+    "density": (1, 3, 3),
     "rho_star": (1, ITER_COLS, ITER_COLS),
     "viscsurf": (6, PM_VEZ + 1, PM_RHO + 1),
     "paccel": (3, PACC_COLS, PACC_COLS),
@@ -88,6 +100,7 @@ _SPECS = {
 # are one group): comparisons scale a tolerance by the group's magnitude,
 # since one component of a vector sum may cancel to far below the others.
 OUTPUT_GROUPS = {
+    "density": ((0,),),
     "rho_star": ((0,),),
     "viscsurf": ((0, 1, 2), (3, 4, 5)),
     "paccel": ((0, 1, 2),),
@@ -96,8 +109,12 @@ OUTPUT_GROUPS = {
     "membrane": ((0, 1, 2), (3,), (4,)),
 }
 
-# Kernel launches per kind (plain ints, reset by callers that count a run).
-LAUNCHES = {kind: 0 for kind in _SPECS}
+# kinds with a subgroup-gated kernel (the fast engine's main-window passes)
+GATED = ("density", "viscsurf", "paccel")
+
+# Kernel launches per kind, gated launches as kind + "_sub" (plain ints,
+# reset by callers that count a run).
+LAUNCHES = {kind: 0 for kind in _SPECS} | {k + "_sub": 0 for k in GATED}
 
 # Pair elements ([rows x columns]) per chunk of blocks in the plain
 # versions, by device type. On the card a chunk's pair matrices may take
@@ -112,7 +129,8 @@ class PairPass:
 
     ``consts`` are the pass's f32 constants in the kernel's argument order
     (see ``csrc/pair_pass.cu``); ``n_slots`` is its one integer constant
-    (the spring pass's partner slots, 0 elsewhere)."""
+    (the spring pass's partner slots, 0 elsewhere); ``sub`` the subgroup
+    size of the gate (None or >= block: ungated)."""
 
     kind: str
     block: int
@@ -120,10 +138,26 @@ class PairPass:
     n_blocks: int
     consts: tuple[float, ...]
     n_slots: int = 0
+    sub: int | None = None
+
+    def __post_init__(self):
+        if self.gated and (self.kind not in GATED or self.block % self.sub):
+            raise ValueError(f"{self.kind}: no gated pass at block "
+                             f"{self.block}, sub {self.sub}")
 
     @property
     def n_pad(self) -> int:
         return self.n_blocks * self.block
+
+    @property
+    def gated(self) -> bool:
+        """Subgroup-gated: 8-tuple tables, a tile computed per group."""
+        return self.sub is not None and 0 < self.sub < self.block
+
+    @property
+    def launch_key(self) -> str:
+        """Its entry in ``LAUNCHES``."""
+        return self.kind + "_sub" if self.gated else self.kind
 
     @property
     def slab_rows(self) -> int:
@@ -147,6 +181,8 @@ class PairPass:
         """The plain PyTorch version (any device; it computes in the packs'
         dtype, so f64 packs give an f64 oracle of the same sums)."""
         out = _plain(self, tables, own_pack, slab_pack)
+        if self.kind == "density":
+            out = [_density_of(self, out[0])]
         return out[0] if len(out) == 1 else tuple(out)
 
     def rounding_scale(self, tables, own_pack, slab_pack):
@@ -154,8 +190,15 @@ class PairPass:
         sum scales with: sum_j |term_ij|, where a factor (c - r)^n that
         vanishes at its cutoff c (h, h^2, h/4, r0) counts as c (c - r)^(n-1),
         since an f32 c - r is off by ulps of c however small it is. Two
-        correct f32 evaluations of the pass differ by a few ulps of it."""
+        correct f32 evaluations of the pass differ by a few ulps of it. The
+        density's is its raw sum's times c_rho / h^6 where the clamp at 1 is
+        not active (0 where it is: the output is c_rho exactly)."""
         out = _plain(self, tables, own_pack, slab_pack, scale=True)
+        if self.kind == "density":
+            _, _, inv_h6, c_rho = self.consts
+            raw = _plain(self, tables, own_pack, slab_pack)[0]
+            free = _density_of(self, raw) > c_rho
+            out = [torch.where(free, out[0] * (c_rho * inv_h6), 0.0)]
         return out[0] if len(out) == 1 else tuple(out)
 
     def kernel(self, tables, own_pack, slab_pack):
@@ -175,29 +218,42 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def make_density_pass(*, block, ccol, n_blocks, inv_h2, c_rho, sub=None,
+                      **_):
+    """Density c_rho * max((s - (h^2)^3) / h^6, 1) with s_i = sum_j
+    max(h^2 - r_ij^2, 0)^3 over the block's tiles, the self term included
+    (then subtracted, exactly as f32 (h^2 h^2) h^2). Reads x, y, z from rows
+    0-2 of both packs (the main pack, or the 3-row iteration pack: rho*).
+    Rows with no tile (gated blocks, phantoms) sum 0 and clamp to c_rho."""
+    h2 = np.float32(1.0) / np.float32(inv_h2)
+    self3 = np.float32(h2 * h2) * h2
+    inv_h6 = np.float32(inv_h2) * np.float32(inv_h2) * np.float32(inv_h2)
+    return PairPass("density", block, ccol, n_blocks,
+                    (float(h2), float(self3), float(inv_h6), _f32(c_rho)),
+                    sub=sub)
+
+
+def _density_of(p: PairPass, s):
+    """The density pass's epilogue on its raw sums (the kernel's store)."""
+    _, self3, inv_h6, c_rho = p.consts
+    return c_rho * torch.clamp((s - self3) * inv_h6, min=1.0)
+
+
 def make_rho_star_pass(*, block, ccol, n_blocks, inv_h2, c_rho, raw=False,
-                       **_):
+                       sub=None, **_):
     """Predicted density sums s_i = sum_j max(h^2 - r*_ij^2, 0)^3 (self term
     included; pack cols: predicted x, y, z). ``raw=True`` returns the bare
     sums, which the fastw engine combines across column sets before the
-    clamp; otherwise c_rho * max((s - (h^2)^3) / h^6, 1)."""
+    clamp (never gated); otherwise c_rho * max((s - (h^2)^3) / h^6, 1): the
+    density pass on the iteration pack."""
+    if not raw:
+        return make_density_pass(block=block, ccol=ccol, n_blocks=n_blocks,
+                                 inv_h2=inv_h2, c_rho=c_rho, sub=sub)
     h2 = np.float32(1.0) / np.float32(inv_h2)
-    p = PairPass("rho_star", block, ccol, n_blocks, (float(h2),))
-    if raw:
-        return p
-    self3 = np.float32(h2 * h2) * h2
-    inv_h6 = np.float32(inv_h2) * np.float32(inv_h2) * np.float32(inv_h2)
-    c_rho = _f32(c_rho)
-
-    def call(tables, own_pack, slab_pack):
-        s = p(tables, own_pack, slab_pack)
-        return c_rho * torch.clamp((s - float(self3)) * float(inv_h6),
-                                   min=1.0)
-
-    return call
+    return PairPass("rho_star", block, ccol, n_blocks, (float(h2),), sub=sub)
 
 
-def make_viscsurf_pass(*, block, ccol, n_blocks, inv_h2, **_):
+def make_viscsurf_pass(*, block, ccol, n_blocks, inv_h2, sub=None, **_):
     """Viscosity + surface-tension sums over the main pack: (vx, vy, vz) =
     sum max(h - r, 0) * (1/rho_j) * (v_j - v_i) / h, (sx, sy, sz) =
     sum_{r < h} (x_i - x_j). Wall columns carry their normal as v; the
@@ -206,11 +262,11 @@ def make_viscsurf_pass(*, block, ccol, n_blocks, inv_h2, **_):
     h2 = np.float32(1.0) / np.float32(inv_h2)
     inv_h = np.float32(np.sqrt(inv_h2))
     return PairPass("viscsurf", block, ccol, n_blocks,
-                    (float(h), float(h2), float(inv_h)))
+                    (float(h), float(h2), float(inv_h)), sub=sub)
 
 
 def make_paccel_pass(*, block, ccol, n_blocks, inv_h2, inv_h, rho0_delta,
-                     **_):
+                     sub=None, **_):
     """Pressure-force sums sum_j w_ij (x_i - x_j) * 0.5 / h^2 with
     w = [cm^2 rho0 delta if cm = h/4 - r > 0 else (h - r)_+^2 (p_i + p_j)]
     * (1/rho*_j) / r, and w = 0 at r = 0. Pack cols: [x, y, z, 1/rho*, p]."""
@@ -218,7 +274,8 @@ def make_paccel_pass(*, block, ccol, n_blocks, inv_h2, inv_h, rho0_delta,
     h4 = np.float32(h / 4.0)
     out_c = np.float32(0.5) * np.float32(inv_h) * np.float32(inv_h)
     return PairPass("paccel", block, ccol, n_blocks,
-                    (float(h), float(h4), _f32(rho0_delta), float(out_c)))
+                    (float(h), float(h4), _f32(rho0_delta), float(out_c)),
+                    sub=sub)
 
 
 def make_boundary_pass(*, block, ccol, n_blocks, r0, **_):
@@ -286,7 +343,7 @@ def _sum(term, scale):
 
 
 def _rho_star_pairs(p, o, s, valid, gid, scale):
-    (h2,) = p.consts
+    h2 = p.consts[0]                 # the density pass's raw sums too
     dx, dy, dz = o[0] - s[0], o[1] - s[1], o[2] - s[2]
     t = torch.clamp(h2 - (dx * dx + dy * dy + dz * dz), min=0.0)
     return [torch.where(valid, t * t * (h2 if scale else t), 0.0).sum(-1)]
@@ -381,6 +438,7 @@ def _membrane_pairs(p, o, s, valid, gid, scale):
 
 
 _PAIRS = {
+    "density": _rho_star_pairs,
     "rho_star": _rho_star_pairs,
     "viscsurf": _viscsurf_pairs,
     "paccel": _paccel_pairs,
@@ -392,9 +450,9 @@ _PAIRS = {
 
 def _tile_columns(tables, ccol, blocks, n_tiles, width):
     """Slab column ids [len(blocks), n_tiles*ccol] that the given blocks
-    stream, and their validity (tile within the block's count, column
-    within the slab width)."""
-    aln, _, _, s0, cnt, _ = (t.long() for t in tables)
+    stream, their validity (tile within the block's count, column within
+    the slab width), and each tile's first column [len(blocks), n_tiles]."""
+    aln, _, _, s0, cnt, _ = (t.long() for t in tables[:6])
     dev = aln.device
     s = torch.arange(n_tiles, device=dev)[None, :]
     b3 = blocks[:, None] * 3
@@ -405,7 +463,21 @@ def _tile_columns(tables, ccol, blocks, n_tiles, width):
              & (cols >= 0) & (cols < width))
     nb = blocks.shape[0]
     cols = torch.where(valid, cols, 0).reshape(nb, -1)
-    return cols, valid.reshape(nb, -1)
+    return cols, valid.reshape(nb, -1), off
+
+
+def _group_gate(p: PairPass, tables, blocks, off):
+    """[len(blocks), block, n_tiles * ccol]: the subgroup gate of each own
+    row and tile column. A row's group computes a tile when the tile's
+    columns [off, off + ccol) overlap one of its three windows."""
+    ng = p.block // p.sub
+    glo, ghi = (t.long().reshape(p.n_blocks, 3, ng)[blocks][..., None]
+                for t in tables[6:8])                       # [nb, 3, ng, 1]
+    o = off[:, None, None, :]                               # [nb, 1, 1, T]
+    hit = ((ghi > o) & (glo < o + p.ccol)).any(1)           # [nb, ng, T]
+    hit = hit.repeat_interleave(p.sub, dim=1)               # [nb, B, T]
+    return hit[..., None].expand(-1, -1, -1, p.ccol).reshape(
+        hit.shape[0], p.block, -1)
 
 
 def _plain(p: PairPass, tables, own, slab, scale=False):
@@ -436,14 +508,17 @@ def _plain(p: PairPass, tables, own, slab, scale=False):
                <= budget):
             j += 1
         blocks = active[i:j]
-        cols, valid = _tile_columns(tables, p.ccol, blocks, counts[j - 1],
-                                    slab_w)
+        cols, valid, off = _tile_columns(tables, p.ccol, blocks,
+                                         counts[j - 1], slab_w)
         rows = ob + blocks[:, None] * B + torch.arange(B, device=dev)
         live = (rows >= 0) & (rows < own_w)
         o = own[:, torch.where(live, rows, 0)][..., None]   # [k, nb, B, 1]
         s = slab[:, cols][:, :, None, :]                    # [k, nb, 1, C]
         gid = rows.to(own.dtype)[..., None]                 # [nb, B, 1]
-        res = pairs(p, o, s, valid[:, None, :], gid, scale)
+        valid = valid[:, None, :]
+        if p.gated:
+            valid = valid & _group_gate(p, tables, blocks, off)
+        res = pairs(p, o, s, valid, gid, scale)
         for k, r in enumerate(res):
             out[k, blocks] = torch.where(live, r, 0.0)
         i = j
@@ -457,8 +532,9 @@ def _plain(p: PairPass, tables, own, slab, scale=False):
 def _check(p: PairPass, tables, own, slab):
     n_out, own_rows, slab_rows = _rows(p)
     dev = own.device
-    if len(tables) != 6:
-        raise ValueError(f"{p.kind}: expected the 6-tuple tables, "
+    n_tab = 8 if p.gated else 6
+    if len(tables) != n_tab:
+        raise ValueError(f"{p.kind}: expected the {n_tab}-tuple tables, "
                          f"got {len(tables)}")
     for name, a, rows in (("own", own, own_rows), ("slab", slab, slab_rows)):
         if a.device != dev or a.dtype != torch.float32 or a.dim() != 2:
@@ -474,6 +550,8 @@ def _check(p: PairPass, tables, own, slab):
         raise ValueError(f"{p.kind}: own pack width {own.shape[1]} < "
                          f"n_blocks*block {p.n_pad}")
     sizes = (3 * p.n_blocks, None, None, 3 * p.n_blocks, p.n_blocks, 1)
+    if p.gated:
+        sizes += (3 * p.n_blocks * (p.block // p.sub),) * 2
     for i, (t, n) in enumerate(zip(tables, sizes)):
         if n is None:
             continue
@@ -495,18 +573,22 @@ def _launch(p: PairPass, tables, own, slab):
     n_out = _rows(p)[0]
     out = torch.empty((n_out, p.n_pad), dtype=torch.float32,
                       device=own.device)
-    aln, _, _, s0, cnt, ob = tables
+    aln, _, _, s0, cnt, ob = tables[:6]
+    # the gate's windows, or null pointers and sub 0: the ungated kernel
+    glo, ghi = ((t.data_ptr() for t in tables[6:8]) if p.gated
+                else (None, None))
     consts = (list(p.consts) + [0.0] * 4)[:4]
     with torch.cuda.device(own.device):
         stream = torch.cuda.current_stream(own.device).cuda_stream
         err = getattr(lib, "sph_pair_" + p.kind)(
             own.data_ptr(), own.shape[1], slab.data_ptr(), slab.shape[1],
             aln.data_ptr(), s0.data_ptr(), cnt.data_ptr(), ob.data_ptr(),
+            glo, ghi, p.sub if p.gated else 0,
             out.data_ptr(), p.n_blocks, p.block, p.ccol, *consts, p.n_slots,
             stream,
         )
     if err:
         msg = ctypes.string_at(lib.sph_cuda_error_string(err)).decode()
         raise RuntimeError(f"{p.kind} kernel launch failed: {msg} ({err})")
-    LAUNCHES[p.kind] += 1
+    LAUNCHES[p.launch_key] += 1
     return list(out)

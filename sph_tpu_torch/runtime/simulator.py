@@ -2,9 +2,9 @@
 ``sph_tpu/runtime/simulator.py``).
 
 Owns the device state, steps the physics in chunks of one resort period,
-and surfaces the engine's overflow diagnostics loudly. Only the
-wall-compact (fastw) engine is ported so far; trajectory dumps,
-checkpoints and the adaptive resort ladder are ROADMAP Queue 1 item 9.
+and surfaces the engine's overflow diagnostics loudly. The fast and the
+wall-compact (fastw) engines are ported; trajectory dumps, checkpoints and
+the adaptive resort ladder are ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -23,7 +23,6 @@ logger = logging.getLogger("sph_tpu_torch")
 
 # engines of sph_tpu not ported yet -> the ROADMAP item that ports them
 _NOT_PORTED = {
-    "fast": "ROADMAP Queue 1 item 7 (the fast engine)",
     "exact": "ROADMAP Queue 1 item 8 (the exact engine)",
     "halo": "ROADMAP Queue 1 item 11 (multi-GPU)",
 }
@@ -54,12 +53,15 @@ class Simulator:
         dump_dir: str | None = None,
         adaptive_resort: bool = False,
     ):
-        """engine: "auto" (see :func:`resolve_auto_engine`) or "fastw";
-        the other ``sph_tpu`` engines raise NotImplementedError naming
-        their ROADMAP item. device: a torch device; "cuda" runs the pair
-        passes as Hopper kernels, "cpu" as their plain PyTorch versions.
-        fast_config: keyword overrides for ``compute_fastw_config``
-        (block/ccol/ccol_c/resort_every/dilate/shell_margin)."""
+        """engine: "auto" (see :func:`resolve_auto_engine`), "fast" (the
+        blocked pair engine, walls in the carry; core/fast.py) or "fastw"
+        (the wall-compact engine; core/fastw.py); the other ``sph_tpu``
+        engines raise NotImplementedError naming their ROADMAP item.
+        device: a torch device; "cuda" runs the pair passes as Hopper
+        kernels, "cpu" as their plain PyTorch versions. fast_config:
+        keyword overrides for ``compute_fast_config`` (fast:
+        block/ccol/ccol_c/resort_every/sub) or ``compute_fastw_config``
+        (fastw: block/ccol/ccol_c/resort_every/dilate/shell_margin)."""
         if dump_dir is not None:
             raise NotImplementedError(
                 "trajectory dumps: ROADMAP Queue 1 item 9")
@@ -78,19 +80,29 @@ class Simulator:
         if engine in _NOT_PORTED:
             raise NotImplementedError(
                 f"engine {engine!r} is not ported yet: {_NOT_PORTED[engine]}")
-        if engine != "fastw":
+        if engine not in ("fast", "fastw"):
             raise ValueError(f"unknown engine {engine!r}")
         self.engine = engine
 
-        from ..core.fastw import compute_fastw_config, precompute_wall_static
+        fck = dict(fast_config or {})
+        if engine == "fast":
+            from ..core.fast import compute_fast_config
 
-        self._fast_cfg = compute_fastw_config(
-            scene.pos, self.params, self.layout, ptype=scene.ptype,
-            device=self.device, **dict(fast_config or {}))
-        # walls never move: their sort + mutual density sums are hoisted
-        self._wall_static = precompute_wall_static(
-            scene.pos, scene.normal, self.params, self.layout,
-            self._fast_cfg)
+            self._fast_cfg = compute_fast_config(scene.pos, self.params,
+                                                 **fck)
+        else:
+            from ..core.fastw import (compute_fastw_config,
+                                      precompute_wall_static)
+
+            self._fast_cfg = compute_fastw_config(
+                scene.pos, self.params, self.layout, ptype=scene.ptype,
+                device=self.device, **fck)
+            # walls never move: their sort + mutual density sums are
+            # hoisted
+            self._wall_static = precompute_wall_static(
+                scene.pos, scene.normal, self.params, self.layout,
+                self._fast_cfg)
+        # one resort period a chunk, so every chunk re-sorts exactly once
         self._fast_chunk = max(1, self._fast_cfg.resort_every)
         self._fast_runs = {}
         # build the period runner now: a scene the engine cannot step
@@ -117,13 +129,27 @@ class Simulator:
         return int(self.state.step)
 
     def _fast_run_for(self, n: int):
+        """run(state, springs, membranes) -> (state, diag) over n steps;
+        diag holds device tensors (fast: the window drift only)."""
         if n not in self._fast_runs:
-            from ..core.fastw import make_fastw_multi_step
+            if self.engine == "fast":
+                from ..core.fast import make_fast_multi_step
 
-            self._fast_runs[n] = make_fastw_multi_step(
-                self.params, self.layout, self._fast_cfg, n,
-                return_diag=True, wall_static=self._wall_static,
-            )
+                fast_run = make_fast_multi_step(
+                    self.params, self.layout, self._fast_cfg, n,
+                    return_drift=True)
+
+                def run(state, springs, membranes, _f=fast_run):
+                    out, drift = _f(state, springs, membranes)
+                    return out, dict(window_drift=drift)
+            else:
+                from ..core.fastw import make_fastw_multi_step
+
+                run = make_fastw_multi_step(
+                    self.params, self.layout, self._fast_cfg, n,
+                    return_diag=True, wall_static=self._wall_static,
+                )
+            self._fast_runs[n] = run
         return self._fast_runs[n]
 
     def _run(self, n: int):
@@ -136,17 +162,16 @@ class Simulator:
             state, diag = self._fast_run_for(size)(
                 state, self.springs, self.membranes)
             remaining -= size
-            # device-side max across chunks, no host sync
-            self._shell_overflow = torch.maximum(self._shell_overflow,
-                                                 diag["shell_overflow"])
-            self._tile_overflow = torch.maximum(self._tile_overflow,
-                                                diag["tile_overflow"])
-            self._window_drift = torch.maximum(self._window_drift,
-                                               diag["window_drift"])
-        # shell overflow = moving-wall pairs DROPPED (wrong forces near the
-        # wall with no other signal) — loud at the run site: one scalar host
-        # sync per user-level step() call
-        ovf_s = int(self._shell_overflow)
+            # device-side max across chunks, no host sync (per chunk: the
+            # drift of each resort period, as sph_tpu's _track_drift)
+            for k in ("shell_overflow", "tile_overflow", "window_drift"):
+                if k in diag:
+                    setattr(self, "_" + k, torch.maximum(
+                        getattr(self, "_" + k), diag[k]))
+        # fastw's shell overflow = moving-wall pairs DROPPED (wrong forces
+        # near the wall with no other signal) — loud at the run site: one
+        # scalar host sync per user-level step() call
+        ovf_s = int(self._shell_overflow) if self.engine == "fastw" else 0
         if ovf_s:
             logger.error(
                 "fastw shell overflowed by %d wall row(s) by step %d — "
@@ -167,18 +192,27 @@ class Simulator:
         return self.timer.elapsed_ms
 
     def check_overflow(self) -> dict:
-        """Read-and-reset diagnostics since the last check: shell overflow
-        (dropped moving-wall pairs), tile overflow (tiles the TPU kernels'
-        static caps would drop), and the worst per-resort-period
+        """Read-and-reset diagnostics since the last check: tile overflow
+        (tiles the TPU kernels' static caps would drop: fastw counts its
+        tables of every resort, fast the main tables at the current
+        positions, ``tile_table_stats``, as sph_tpu does), fastw's shell
+        overflow (dropped moving-wall pairs), and the worst per-resort-period
         pair-approach bound in units of h (2x the summed per-step max
         displacement). Warns on any overflow and on drift > 0.25 h."""
-        out = {
-            "cell_overflow": 0,
-            "shell_overflow": int(self._shell_overflow),
-            "tile_overflow": int(self._tile_overflow),
-            "window_drift_h": 2.0 * float(self._window_drift)
-            / self.params.h,
-        }
+        out = {"cell_overflow": 0}
+        if self.engine == "fast":
+            from ..core.fast import tile_caps, tile_table_stats
+
+            cfg = self._fast_cfg
+            tmax, ttot = tile_table_stats(self.get_position(), self.params,
+                                          cfg)
+            smax, per_block = tile_caps(cfg.ccol)
+            out["tile_overflow"] = (max(0, tmax - smax)
+                                    + max(0, ttot - cfg.n_blocks * per_block))
+        else:
+            out["shell_overflow"] = int(self._shell_overflow)
+            out["tile_overflow"] = int(self._tile_overflow)
+        out["window_drift_h"] = 2.0 * float(self._window_drift) / self.params.h
         self._reset_diag()
         bad = {k: v for k, v in out.items()
                if k.endswith("overflow") and v > 0}

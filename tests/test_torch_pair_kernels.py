@@ -22,6 +22,14 @@ of the output's vector (``pair_kernels.OUTPUT_GROUPS``):
   through a bf16 split, leaving up to 1e-2 of the output's scale there. On
   those rows the port and the oracle must both be exactly 0.
 
+The fast engine's passes (the time-t density, rho* on the iteration pack,
+viscsurf and paccel, all four subgroup-gated at sub 32, and the boundary
+pass) are recorded the same way from one step of the port's fast engine on
+the kicked box at block 128, ccol 128; the oracle applies the gate of each
+row's subgroup as its docstring in ``sph_tpu/ops/pair_kernels.py`` states
+it (a tile counts for a group when it overlaps one of the group's three
+windows), and the density pass is also held ungated.
+
 The spring and membrane passes run on synthetic packs and tables made here
 from a seed (``elastic_inputs``): a cloud of own rows of which a sorted
 subset is the compact elastic slab, with partner lists that hold pads, a
@@ -32,6 +40,7 @@ stream all, some or none of the slab's tiles (so some own rows meet no
 partner). Same bounds: 2e-6 against the oracle, 1e-4 against Pallas.
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -42,9 +51,18 @@ from sph_tpu.ops import pair_kernels as jpk
 
 from sph_tpu_torch.config import SimParams
 from sph_tpu_torch.constants import BOUNDARY_PARTICLE
+from sph_tpu_torch.core import fast as F
 from sph_tpu_torch.core import fastw as W
 from sph_tpu_torch.ops import pair_kernels as pk
 from sph_tpu_torch.scene import generate_liquid_box_scene
+
+# The suite runs in several worker processes at once (pytest-xdist): each
+# takes its share of the cores for torch's CPU kernels, or the workers'
+# thread pools oversubscribe the host and spin against each other (a torch
+# test file ran 8x slower beside one other busy process). Every worker
+# imports this module when it collects the tests.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 # The first parallel op of a process that takes a square root has, on some
 # hosts, returned ~3e-4-relative results in one worker thread's chunk (5 of
@@ -56,12 +74,15 @@ torch.rand(1 << 20).mul_(2.0)
 
 H = 3.34
 ORACLE_TOL = 2e-6
-TOL = {"rho_star": 1e-5, "viscsurf": 1e-4, "paccel": 1e-4, "boundary": 1e-4,
+TOL = {"density": 1e-5, "rho_star": 1e-5, "viscsurf": 1e-4, "paccel": 1e-4, "boundary": 1e-4,
        "spring": 1e-4, "membrane": 1e-4}
 # kind -> outputs held against Pallas on real own rows only (see above)
 SURFACE = {"viscsurf": (3, 4, 5)}
 PASS_NAMES = ["raw_mm", "raw_ms", "raw_sm", "visc_mm", "visc_ms",
               "pacc_mm", "pacc_ms", "bnd_ms"]
+# the fast engine's passes (gated at FAST_SUB but the boundary pass)
+FAST_NAMES = ["density", "rho_star", "viscsurf", "paccel", "boundary"]
+FAST_SUB = 32
 
 
 def kick_box_scene(scene, params, seed=0, jitter=0.35, drop=3.4,
@@ -108,14 +129,35 @@ def recorded():
     return params, calls
 
 
-def jax_pass(p: pk.PairPass, params):
-    """The sph_tpu Pallas pass (interpret mode) configured like ``p``."""
+@pytest.fixture(scope="module")
+def recorded_fast():
+    """name -> (PairPass, tables, own, slab): the last call of each pair
+    pass in one sort + step of the port's fast engine on CPU (gated)."""
+    params, layout, _, _, state, springs, membranes = kicked_box_state()
+    cfg = F.compute_fast_config(state.pos, params, block=128, ccol=128,
+                                sub=FAST_SUB)
+    calls = F.record_step_inputs(F._make_step_parts(params, layout, cfg),
+                                 state, springs, membranes)
+    assert sorted(calls) == sorted(FAST_NAMES)
+    for name, (p, tables, *_) in calls.items():
+        assert p.gated == (name != "boundary")
+        assert len(tables) == (8 if p.gated else 6)
+    return params, calls
+
+
+def jax_pass(p: pk.PairPass, params, name=None):
+    """The sph_tpu Pallas pass (interpret mode) configured like ``p``
+    (``name`` "rho_star": the density kind as sph_tpu's non-raw rho*)."""
     inv_h2 = np.float32(1.0 / (params.h * params.h))
     kw = dict(block=p.block, ccol=p.ccol, n_blocks=p.n_blocks,
-              inv_h2=inv_h2, interpret=True)
+              inv_h2=inv_h2, interpret=True, sub=p.sub)
+    c_rho = np.float32(params.c_rho)
+    if p.kind == "density":
+        make = (jpk.make_rho_star_pass if name == "rho_star"
+                else jpk.make_density_pass)
+        return make(c_rho=c_rho, **kw)
     if p.kind == "rho_star":
-        return jpk.make_rho_star_pass(c_rho=np.float32(params.c_rho),
-                                      raw=True, **kw)
+        return jpk.make_rho_star_pass(c_rho=c_rho, raw=True, **kw)
     if p.kind == "viscsurf":
         return jpk.make_viscsurf_pass(**kw)
     if p.kind == "paccel":
@@ -192,12 +234,19 @@ def oracle_terms(p, params, o, s, gid):
         d = o[3:6] - s[:3]
     r2 = (d * d).sum(0)
     r = np.sqrt(r2)
-    if kind == "rho_star":
+    if kind in ("density", "rho_star"):     # density: raw sums, see oracle
         return [np.maximum(h * h - r2, 0.0) ** 3]
     if kind == "viscsurf":
         wv = np.maximum(h - r, 0.0) * s[6] / h          # row 6 holds 1/rho
+        # the surface sum's pair set is the f32 test r^2 < h^2 of the
+        # passes: a step at r = h, where f64 and f32 disagree on pairs at
+        # exactly h (walls on the lattice, two r0 apart)
+        f = np.float32
+        d32 = o[:3].astype(f) - s[:3].astype(f)
+        r2_32 = d32[0] * d32[0] + d32[1] * d32[1] + d32[2] * d32[2]
+        near = r2_32 < f(1.0) / f(1.0 / (params.h * params.h))
         return ([wv * (s[3 + k] - o[3 + k]) for k in range(3)]
-                + [(r2 < h * h) * d[k] for k in range(3)])
+                + [near * d[k] for k in range(3)])
     if kind == "paccel":
         cm = h / 4.0 - r
         term = np.where(cm > 0.0, cm * cm * params.rho0 * params.delta,
@@ -210,40 +259,64 @@ def oracle_terms(p, params, o, s, gid):
 
 
 def block_pairs(p: pk.PairPass, tables, own, slab):
-    """(b, own rows [k, B, 1], slab columns [k, 1, C]) in f64 for each own
-    block b with tiles: every column of every tile the tables list (tile t
-    of block b starts at aln[c] + (t - s0[c]) * ccol, c = 3b + #{s0[3b+1],
-    s0[3b+2] <= t})."""
-    aln, _, _, s0, cnt, ob = (t.numpy().astype(np.int64) for t in tables)
+    """(b, own rows [k, B, 1], slab columns [k, 1, C], own ids [B, 1], gate
+    [B, C]) in f64 for each own block b with tiles: every column of every
+    tile the tables list (tile t of block b starts at off = aln[c] + (t -
+    s0[c]) * ccol, c = 3b + #{s0[3b+1], s0[3b+2] <= t}). ``gate`` says which
+    (row, column) terms count: all of them, or for a gated pass those of the
+    tiles that overlap one of the row's subgroup's three windows [glo, ghi)
+    (glo/ghi at (3b + dz) * ng + g, ng = block / sub)."""
+    aln, _, _, s0, cnt, ob = (t.numpy().astype(np.int64) for t in tables[:6])
+    if p.gated:
+        ng = p.block // p.sub
+        glo, ghi = (t.numpy().astype(np.int64).reshape(p.n_blocks, 3, ng)
+                    for t in tables[6:8])
     o64 = own.numpy().astype(np.float64)
     s64 = slab.numpy().astype(np.float64)
     for b in range(p.n_blocks):
-        tiles = []
+        tiles, gates = [], []
         for t in range(cnt[b]):
             c = 3 * b + int(t >= s0[3 * b + 1]) + int(t >= s0[3 * b + 2])
-            tiles.append(aln[c] + (t - s0[c]) * p.ccol + np.arange(p.ccol))
+            off = aln[c] + (t - s0[c]) * p.ccol
+            tiles.append(off + np.arange(p.ccol))
+            hit = np.ones(p.block, bool)
+            if p.gated:
+                hit = np.repeat(((ghi[b] > off) & (glo[b] < off + p.ccol))
+                                .any(0), p.sub)
+            gates.append(np.repeat(hit[:, None], p.ccol, 1))
         if not tiles:
             continue
         cols = np.concatenate(tiles)
-        cols = cols[cols < s64.shape[1]]
+        keep = cols < s64.shape[1]
+        cols = cols[keep]
         rows = ob[0] + b * p.block + np.arange(p.block)
         yield (b, o64[:, rows][:, :, None], s64[:, cols][:, None, :],
-               rows[:, None].astype(np.float64))
+               rows[:, None].astype(np.float64),
+               np.concatenate(gates, 1)[:, keep])
+
+
+def density_of(params, s):
+    """f64 density from raw sums: c_rho max((s - (h^2)^3) / h^6, 1)."""
+    h6 = params.h ** 6
+    return params.c_rho * np.maximum((s - h6) / h6, 1.0)
 
 
 def oracle(p: pk.PairPass, params, tables, own, slab):
     """f64 sums of each output's pair terms, block by block."""
     out = np.zeros((pk._SPECS[p.kind][0], p.n_pad))
-    for b, o, s, gid in block_pairs(p, tables, own, slab):
+    for b, o, s, gid, gate in block_pairs(p, tables, own, slab):
         for k, t in enumerate(oracle_terms(p, params, o, s, gid)):
-            out[k, b * p.block:(b + 1) * p.block] = t.sum(-1)
+            out[k, b * p.block:(b + 1) * p.block] = (t * gate).sum(-1)
+    if p.kind == "density":
+        out = density_of(params, out)
     return list(out)
 
 
-def run_both(p, params, tables, own, slab):
+def run_both(p, params, tables, own, slab, name=None):
     """(port outputs, Pallas outputs, f64 oracle) as numpy lists."""
-    ref = jax_pass(p, params)(tuple(jnp.asarray(t.numpy()) for t in tables),
-                              jax_pack(own), jax_pack(slab))
+    ref = jax_pass(p, params, name)(
+        tuple(jnp.asarray(t.numpy()) for t in tables), jax_pack(own),
+        jax_pack(slab))
     out = p(tables, own, slab)
 
     def lst(x):
@@ -291,10 +364,44 @@ def test_plain_pass_matches_pallas(recorded, name):
     assert_close(p, params, tables, own, out, ref, orc)
     if p.kind == "paccel":               # both branches of the pair weight
         r = np.concatenate([np.sqrt(((o[:3] - s[:3]) ** 2).sum(0)).ravel()
-                            for _, o, s, _ in block_pairs(p, tables, own,
-                                                          slab)])
+                            for _, o, s, _, _ in block_pairs(p, tables, own,
+                                                             slab)])
         assert ((r > 0) & (r < params.h / 4)).sum() > 0
         assert ((r > params.h / 4) & (r < params.h)).sum() > 0
+
+
+@pytest.mark.parametrize("name,gated", [
+    ("density", False), ("density", True), ("rho_star", True),
+    ("viscsurf", True), ("paccel", True)])
+def test_fast_pass_matches_pallas(recorded_fast, name, gated):
+    """The density pass (ungated and gated) and the four gated passes of
+    the fast engine against sph_tpu's passes of the same ``sub`` and the
+    oracle; the gate skips some (tile, group) terms that the ungated pass
+    computes, and a gated pass sums what the gate admits."""
+    params, calls = recorded_fast
+    p, tables, own, slab = calls[name]
+    if not gated:
+        p, tables = dataclasses.replace(p, sub=None), tables[:6]
+    assert p.gated == gated
+    before = dict(pk.LAUNCHES)
+    out, ref, orc = run_both(p, params, tables, own, slab, name)
+    assert pk.LAUNCHES == before          # CPU tensors: no kernel launch
+    assert_close(p, params, tables, own, out, ref, orc)
+    gates = [g for *_, g in block_pairs(p, tables, own, slab)]
+    assert all(g.all() for g in gates) != gated
+    if p.kind == "density":
+        # rows with no tile (gated far-wall blocks, phantoms) read c_rho
+        c_rho = np.float32(params.c_rho)
+        assert (out[0] == c_rho).any() and (out[0] > c_rho).sum() > 100
+
+
+def test_gate_leaves_sort_time_sums_unchanged(recorded_fast):
+    """At sort-time positions every term the gate skips is an exact zero:
+    the gated time-t density equals the ungated one bit for bit."""
+    _, calls = recorded_fast
+    p, tables, own, slab = calls["density"]
+    full = dataclasses.replace(p, sub=None)(tables[:6], own, slab)
+    assert torch.equal(p(tables, own, slab), full)
 
 
 N_SLOTS = 4
@@ -449,14 +556,17 @@ def test_elastic_inputs_cover_the_cases(elastic):
     assert (wsum > 0).sum() > 100
 
 
-@pytest.mark.parametrize("name", PASS_NAMES + ["spring_ms", "mem_ms"])
-def test_rounding_scale_bounds_the_sums(recorded, elastic, name):
+@pytest.mark.parametrize("name", PASS_NAMES + ["spring_ms", "mem_ms",
+                                  "density", "paccel"])
+def test_rounding_scale_bounds_the_sums(recorded, elastic, recorded_fast,
+                                        name):
     """``PairPass.rounding_scale``: per row at least the f64 sum of the
     absolute pair terms (a cutoff factor counts as no less than itself), on
     a row without pairs exactly 0, and 1e-5 of its max bounds the f32 plain
     version's distance from the f64 oracle."""
     params, calls = recorded
-    p, tables, own, slab = dict(calls, **elastic[1])[name]
+    p, tables, own, slab = dict(calls, **elastic[1],
+                                **recorded_fast[1])[name]
     scale = p.rounding_scale(tables, own, slab)
     scale = [a.numpy() for a in (scale if isinstance(scale, tuple)
                                  else (scale,))]
@@ -464,9 +574,12 @@ def test_rounding_scale_bounds_the_sums(recorded, elastic, name):
     out = [a.numpy() for a in (out if isinstance(out, tuple) else (out,))]
     orc = oracle(p, params, tables, own, slab)
     absum = np.zeros((len(orc), p.n_pad))
-    for b, o, s, gid in block_pairs(p, tables, own, slab):
+    for b, o, s, gid, gate in block_pairs(p, tables, own, slab):
         for k, t in enumerate(oracle_terms(p, params, o, s, gid)):
-            absum[k, b * p.block:(b + 1) * p.block] = np.abs(t).sum(-1)
+            absum[k, b * p.block:(b + 1) * p.block] = np.abs(t * gate).sum(-1)
+    if p.kind == "density":     # the raw sum's scale where not clamped
+        free = orc[0] > params.c_rho
+        absum = np.where(free, absum * params.c_rho / params.h ** 6, 0.0)
     for group in pk.OUTPUT_GROUPS[p.kind]:
         top = max(float(scale[i].max()) for i in group)
         for i in group:
@@ -517,6 +630,24 @@ def test_dispatch_and_input_checks(recorded):
         p.kernel(tables, own[:2].contiguous(), slab)
 
 
+def test_gated_pass_checks(recorded_fast):
+    """A gated pass takes the 8-tuple tables; only the density, viscsurf
+    and paccel kinds have a gated form, at a sub that divides the block."""
+    _, calls = recorded_fast
+    p, tables, own, slab = calls["paccel"]
+    assert p.launch_key == "paccel_sub" and p.sub == FAST_SUB
+    with pytest.raises(ValueError, match="8-tuple"):
+        p.kernel(tables[:6], own, slab)
+    with pytest.raises(ValueError, match="table 6"):
+        p.kernel(tables[:6] + (tables[6][:-1], tables[7]), own, slab)
+    kw = dict(block=128, ccol=128, n_blocks=8, inv_h2=1.0, c_rho=1.0)
+    with pytest.raises(ValueError, match="no gated pass"):
+        pk.make_rho_star_pass(raw=True, sub=32, **kw)
+    with pytest.raises(ValueError, match="no gated pass"):
+        pk.make_density_pass(sub=48, **kw)
+    assert not pk.make_density_pass(sub=128, **kw).gated   # sub >= block
+
+
 def test_spring_pass_checks(elastic):
     """The spring slab's row count follows the slot count; ids must stay
     exact as f32."""
@@ -550,18 +681,19 @@ def test_rho_star_clamped_wrapper(recorded):
 
 
 @pytest.mark.cuda
-def test_kernels_match_plain_on_cuda(recorded, elastic):
+def test_kernels_match_plain_on_cuda(recorded, elastic, recorded_fast):
     """On a CUDA card: each Hopper kernel against its plain version on the
     same inputs (1e-5 of the output vector's max magnitude)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     params, calls = recorded
-    calls = dict(calls, **elastic[1])
+    calls = dict(calls, **elastic[1],
+                 **{"fast_" + k: v for k, v in recorded_fast[1].items()})
     for name, (p, tables, own, slab) in calls.items():
         cu = [t.cuda() for t in tables]
-        before = pk.LAUNCHES[p.kind]
+        before = pk.LAUNCHES[p.launch_key]
         k = p(cu, own.cuda(), slab.cuda())
-        assert pk.LAUNCHES[p.kind] == before + 1
+        assert pk.LAUNCHES[p.launch_key] == before + 1
         r = p.plain(tables, own, slab)
         k = [t.cpu().numpy() for t in (k if isinstance(k, tuple) else (k,))]
         r = [t.numpy() for t in (r if isinstance(r, tuple) else (r,))]
@@ -588,4 +720,11 @@ def test_pass_constants_match_jax_wrappers():
     bnd = pk.make_boundary_pass(r0=np.float32(params.r0), **kw)
     r0 = np.float32(params.r0)
     assert bnd.consts == (float(r0), float(np.float32(1.0 / r0)))
+    den = pk.make_density_pass(c_rho=np.float32(params.c_rho), **kw)
+    h2 = np.float32(1.0) / inv_h2
+    assert den.consts == (float(h2), float(np.float32(h2 * h2) * h2),
+                          float(inv_h2 * inv_h2 * inv_h2),
+                          float(np.float32(params.c_rho)))
+    assert pk.make_rho_star_pass(c_rho=np.float32(params.c_rho),
+                                 **kw) == den
     assert dataclasses.replace(bnd, ccol=256).ccol == 256

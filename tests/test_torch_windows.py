@@ -120,26 +120,67 @@ def _pencils(seed, n, npen):
     return np.sort(rng.integers(0, npen, n)).astype(np.int32)
 
 
-@pytest.mark.parametrize("seed,n,block,ccol", [
-    (0, 1000, 256, 512), (1, 2800, 128, 256), (2, 700, 256, 128)])
-def test_window_tables_random_pencils(seed, n, block, ccol):
+@pytest.mark.parametrize("seed,n,block,ccol,sub", [
+    (0, 1000, 256, 512, None), (1, 2800, 128, 256, 32),
+    (2, 700, 256, 128, 8), (3, 1500, 128, 128, 16), (4, 700, 128, 256, 128)])
+def test_window_tables_random_pencils(seed, n, block, ccol, sub):
+    """The 6-tuple tables, pencil starts and ranges, and the subgroup gate's
+    unmerged windows (``gtabs``: None unless 0 < sub < block)."""
     dims = (7, 5, 9)
     nb = -(-(-(-n // block)) // 8) * 8
-    kw = dict(n_particles=n, n_blocks=nb, block=block, ccol=ccol, dims=dims)
+    kw = dict(n_particles=n, n_blocks=nb, block=block, ccol=ccol, dims=dims,
+              sub=sub)
     pen = _pencils(seed, n, dims[0] * dims[2])
-    jt, jps, jpr, _ = JF._window_tables(jnp.asarray(pen),
-                                        JF.FastConfig(**kw))
-    t, ps, pr = F._window_tables(torch.as_tensor(pen), F.FastConfig(**kw))
+    jt, jps, jpr, jg = JF._window_tables(jnp.asarray(pen),
+                                         JF.FastConfig(**kw))
+    t, ps, pr, g = F._window_tables(torch.as_tensor(pen),
+                                    F.FastConfig(**kw))
     for i, (a, b) in enumerate(zip(t, jt)):
         _eq(a, b, f"tables[{i}]")
     _eq(ps, jps, "pstart")
     for a, b in zip(pr, jpr):
         _eq(a, b, "pencil_ranges")
+    assert (g is None) == (jg is None) == (sub in (None, block))
+    if g is not None:
+        for a, b in zip(g, jg):
+            assert a.dtype == torch.int32
+            _eq(a, b, "gtabs")
+        assert g[0].shape == (nb * 3 * (block // sub),)
+        # a group's windows lie inside its block's pencil-band range
+        lo = t[1].reshape(nb, 3)[:, :1].long()
+        assert bool((g[0].reshape(nb, -1) >= lo).all())
     assert int((t[4] == 0).sum()) > 0      # phantom blocks
     # pad to the pack width: F._pad_field matches JF._pad_field
     x = np.arange(n, dtype=np.float32)
     _eq(F._pad_field(torch.as_tensor(x), F.FastConfig(**kw), 7.0),
         JF._pad_field(jnp.asarray(x), JF.FastConfig(**kw), 7.0), "pad")
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fast_config_and_tile_stats_random(seed):
+    """compute_fast_config and tile_table_stats equal sph_tpu's on random
+    positions, in a world whose box_min is offset."""
+    rng = np.random.default_rng(seed)
+    kw = dict(x_min=float(OFF[0]), x_max=float(OFF[0]) + 9 * H,
+              y_min=float(OFF[1]), y_max=float(OFF[1]) + 6 * H,
+              z_min=float(OFF[2]), z_max=float(OFF[2]) + 14 * H)
+    jp = JParams(**kw)
+    p = params_from(jp)
+    lo = np.array([kw["x_min"], kw["y_min"], kw["z_min"]])
+    ext = np.array([9 * H, 6 * H, 14 * H])
+    pos = (lo + rng.uniform(0.0, 1.0, (3000 + 500 * seed, 3)) * ext).astype(
+        np.float32)
+    for ckw in (dict(), dict(block=128, ccol=128, sub=32, ccol_c=128,
+                             resort_every=5, block_multiple=16)):
+        jcfg = JF.compute_fast_config(pos, jp, interpret=True, **ckw)
+        cfg = F.compute_fast_config(pos, p, **ckw)
+        for f in dataclasses.fields(F.FastConfig):
+            assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+        assert cfg.ccol_compact == jcfg.ccol_compact
+        assert cfg.n_alloc == jcfg.n_alloc
+        stats = F.tile_table_stats(pos, p, cfg)
+        assert stats == JF.tile_table_stats(pos, jp, jcfg)
+        assert stats[0] > 0 and stats[1] >= stats[0]
 
 
 @pytest.mark.parametrize("seed", [0, 1])
