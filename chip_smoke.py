@@ -99,12 +99,31 @@ Phases (any failure raises and exits nonzero, printing no result):
    density pass's computed columns a particle and kernel time ungated and
    gated at ccol 128 and 512, every kernel (spring and membrane fed by the
    fast engine's packs) against its plain version and timed, ungated and
-   gated.
+   gated;
+16. the exact engine (plain PyTorch gathers, no kernel of its own): the
+   bench's gate box (2,744 particles) 10 steps on cuda vs cpu, max |dpos|
+   <= 1e-4; ``bench.gate_box_equivalence`` on cuda for fastw and fast
+   (against the exact engine: <= 1e-4 at resort_every 1, <= 5e-3 at 3);
+   the full worm through ``Simulator(engine="exact", device="cuda")``, one
+   untimed and 5 timed steps (finite, walls bitwise still, no pair-kernel
+   launch; ms/step, peak memory, cell overflow printed); ``diagnostics`` on
+   the full worm (time, peak memory, neighbour and cell overflow);
+17. the port's bench, ``python -m sph_tpu_torch.bench`` in a subprocess
+   (watchdog 600 s, timeout 660 s): exactly one JSON line with value > 0,
+   engine fastw and no reason, both gates PASS in its stderr, and its
+   timed steps at exactly the fastw worm's launches a step; the line is
+   printed on an earlier line of this script's output;
+18. the glue path: the ``Pack`` kernel held bitwise to ``pack_plain``
+   (``torch.stack``) at n = 232,192 and 232,205, then
+   ``sph_tpu_torch.scripts.r4_glue_micro.run()`` with its launches and
+   ``pack`` calls counted (one launch a call), its table of times, and the
+   kernel, plain and ``torch.stack`` times beside the kernel's bound (8
+   rows read and written once over the card's memory rate).
 
 Each phase prints its seconds. ``--only`` runs the named phases alone
 (small: 3-4, box: 5-6, rworm: 7, rworm_engine: 8, worm: 9-10, small_fast:
-11-12, tiny_worm: 13, dam: 14, fast_worm: 15) while iterating; the run then
-prints no result lines and exits 2.
+11-12, tiny_worm: 13, dam: 14, fast_worm: 15, exact: 16, bench: 17, pack:
+18) while iterating; the run then prints no result lines and exits 2.
 
 Ends with a JSON line of per-kernel results (each kernel's numbers from the
 path that runs it at its main shapes, with its launches a step on every
@@ -115,6 +134,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -122,13 +142,14 @@ import time
 import numpy as np
 import torch
 
-from sph_tpu_torch import SimParams
+from sph_tpu_torch import SimParams, bench
 from scipy.spatial import cKDTree
 
 from sph_tpu_torch.constants import (BOUNDARY_PARTICLE, ELASTIC_PARTICLE,
                                      LIQUID_PARTICLE)
 from sph_tpu_torch.core import fast as F
 from sph_tpu_torch.core import fastw as W
+from sph_tpu_torch.core import step as S
 from sph_tpu_torch.core.elastic import elastic_accel
 from sph_tpu_torch.models import muscle
 from sph_tpu_torch.ops import _build
@@ -216,6 +237,12 @@ DAM_STEPS = 120
 R4 = dict(block=256, ccol=512, ccol_c=256)
 FAST_WORM_STEPS = 530
 FAST_WORM_TIMED = 120
+
+# ---- the exact engine, the bench and the glue path (phases 16-18) ----
+REPO = os.path.dirname(os.path.abspath(__file__))
+EXACT_BOX_STEPS = 10
+EXACT_WORM_STEPS = 5
+BENCH_WATCHDOG_S = 600
 
 
 def check(ok, msg):
@@ -461,6 +488,25 @@ def time_ms(fn, reps, warm=True):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, reps=50):
+    """Mean device milliseconds a call of the CUDA kernels it launches
+    (torch.profiler over ``reps`` calls, after one untimed call), or None
+    when the profiler recorded no kernel."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == cuda)
+    return us / reps / 1e3 if us else None
 
 
 def engine_run(scene, params, dev, engine, steps, cfg_kw):
@@ -1221,13 +1267,203 @@ def fast_worm_phases(card, profile_steps):
                             launches_by["fast worm sub 32"].items()}})
 
 
+# ---------------------------------------------------------------------------
+# the exact engine, the bench and the glue path (phases 16-18)
+# ---------------------------------------------------------------------------
+
+def exact_phases(card, profile_steps):
+    # 16a. the bench's gate box on the exact engine, cuda vs cpu
+    p, scene = bench.gate_box_scene(SimParams())
+    layout = scene.layout()
+    print(f"exact engine vs plain cpu (gate box, {scene.n_particles} "
+          f"particles, {EXACT_BOX_STEPS} steps):", flush=True)
+    pos = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out = S.multi_step(*scene.device_state(dev), p, layout,
+                           EXACT_BOX_STEPS)
+        pos[dev] = out.pos.cpu().numpy()
+        print(f"    {dev}: {time.perf_counter() - t0:.1f} s", flush=True)
+    d = float(np.abs(pos["cuda"] - pos["cpu"]).max())
+    moved = float(np.linalg.norm(pos["cpu"] - scene.pos, axis=1).max())
+    print(f"  exact: max|dpos| cuda vs cpu {d:.3e}; largest displacement "
+          f"{moved:.3e}", flush=True)
+    check(np.isfinite(pos["cuda"]).all() and d <= ENGINE_TOL,
+          f"exact engine cuda vs cpu max|dpos| {d} > {ENGINE_TOL}")
+    check(moved > 100 * ENGINE_TOL, f"the gate box moved only {moved}")
+
+    # 16b. the bench's box gate on the card: fastw and fast against exact
+    for engine in ("fastw", "fast"):
+        check(bench.gate_box_equivalence(SimParams(), engine=engine,
+                                         device="cuda"),
+              f"box gate {engine} vs exact failed on cuda")
+
+    # 16c. the full worm on the exact engine
+    params = SimParams()
+    scene = generate_worm_scene(params)
+    sim = Simulator(scene, params, engine="exact", device="cuda")
+    n = scene.n_particles
+    print(f"exact worm: {scene.counts}, n {n}, cell_capacity "
+          f"{sim.params.cell_capacity} (scene-measured)", flush=True)
+    sim.step(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dt, launches = timed_run(sim, EXACT_WORM_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    pos_w = sim.get_position()
+    check(np.isfinite(pos_w).all() and np.isfinite(sim.get_velocity()).all(),
+          "exact worm: non-finite state")
+    b0, b1 = sim.layout.boundary_range
+    check(np.array_equal(pos_w[b0:b1], scene.pos[b0:b1]),
+          "exact worm: walls moved")
+    check(not any(launches.values()),
+          f"exact worm launched pair kernels: {launches}")
+    ovf = sim.check_overflow()
+    ms_step = dt * 1e3 / EXACT_WORM_STEPS
+    print(f"exact worm: {EXACT_WORM_STEPS} steps in {dt:.3f} s: "
+          f"{ms_step:.4f} ms/step, {n * 1e3 / ms_step:.6g} particle-steps/s,"
+          f" peak memory {peak / 2**30:.3f} GiB, cell_overflow "
+          f"{ovf['cell_overflow']} [{card}]", flush=True)
+
+    # 16d. diagnostics on the full worm, as the bench's worm gate calls it
+    for label, dparams in (("bench params", params),
+                           ("scene-measured capacity", sim.params)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        diag = S.diagnostics(sim.state, dparams)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        rho = diag["rho"].cpu().numpy()
+        l0, l1 = sim.layout.liquid_range
+        check(np.isfinite(rho).all(), "diagnostics: rho not finite")
+        print(f"  diagnostics ({label}, cell_capacity "
+              f"{dparams.cell_capacity}): {dt * 1e3:.3f} ms, peak memory "
+              f"{peak / 2**30:.3f} GiB, neighbor_overflow "
+              f"{int(diag['neighbor_overflow'])}, cell_overflow "
+              f"{int(diag['cell_overflow'])}, mean liquid rho/rho0 "
+              f"{float(rho[l0:l1].mean()) / params.rho0:.4f}, mean "
+              f"neighbours {float(diag['neighbor_count'].float().mean()):.2f}"
+              f" [{card}]", flush=True)
+    return None
+
+
+def bench_phase(card, profile_steps):
+    # 17. the port's bench in a subprocess: one JSON line, value > 0,
+    # engine fastw, no reason, both gates PASS
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("SPH_BENCH_")}
+    env["SPH_BENCH_WATCHDOG_S"] = str(BENCH_WATCHDOG_S)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "sph_tpu_torch.bench"],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=BENCH_WATCHDOG_S + 60)
+    print(f"bench: exit {res.returncode} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for line in res.stderr.splitlines():
+        print("  " + line, flush=True)
+    lines = res.stdout.strip().splitlines()
+    check(res.returncode == 0 and len(lines) == 1,
+          f"bench: exit {res.returncode}, stdout {res.stdout!r}")
+    rec = json.loads(lines[0])
+    print(f"bench line: {json.dumps(rec)} [{card}]", flush=True)
+    check(rec["value"] > 0 and rec["engine"] == "fastw"
+          and "reason" not in rec, f"bench result {rec}")
+    err = res.stderr
+    for gate in ("GATE worm integrity", "GATE box fastw-vs-exact",
+                 "GATE box stale-window"):
+        ok = [ln for ln in err.splitlines() if gate in ln]
+        check(len(ok) == 1 and ok[0].endswith("PASS"),
+              f"bench {gate}: {ok}")
+    # the timed steps went through the six fastw kernels
+    counts = json.loads(err.split("# pair-kernel launches in the ")[1]
+                        .split(": ", 1)[1].splitlines()[0])
+    steps = int(err.split("# pair-kernel launches in the ")[1].split()[0])
+    for kind, per in PER_STEP.items():
+        check(counts.get(kind, 0) == per * steps,
+              f"bench {kind}: {counts.get(kind, 0)} launches in {steps} "
+              f"steps, expected {per * steps}")
+    return None
+
+
+def pack_phase(card, profile_steps):
+    # 18. the Pack kernel against its plain version, then the glue path
+    from sph_tpu_torch.ops import pack as pack_ops
+    from sph_tpu_torch.scripts import r4_glue_micro as glue
+
+    err = 0.0
+    for n in (glue.N, glue.N + 13):
+        fields = glue.make_fields(n, seed=1)
+        k = pack_ops.pack_kernel(fields)
+        r = pack_ops.pack_plain(fields)
+        torch.cuda.synchronize()
+        err = max(err, float((k - r).abs().max()))
+        check(torch.equal(k, r), f"Pack kernel != torch.stack at n {n}")
+        print(f"  pack n {n}: kernel == plain bitwise", flush=True)
+
+    # the glue path: launches and pack() calls counted over its run
+    calls = [0]
+
+    def counted(fields):
+        calls[0] += 1
+        return pack_ops.pack(fields)
+
+    glue_pack = glue.pack
+    glue.pack = counted
+    torch.cuda.synchronize()
+    pack_ops.LAUNCHES["pack"] = 0
+    try:
+        times = glue.run()
+    finally:
+        glue.pack = glue_pack
+    launches = pack_ops.LAUNCHES["pack"]
+    check(launches > 0 and launches == calls[0],
+          f"glue path: {launches} Pack launches for {calls[0]} pack calls")
+    print(f"glue path (n {glue.N}, {glue.ROWS} rows, {glue.REPS} calls a "
+          f"candidate; D == A bitwise) [{card}]:", flush=True)
+    for name, ms in times.items():
+        print(f"  {name:44s} {ms:9.5f} ms", flush=True)
+
+    fields = glue.make_fields(glue.N)
+    ms = glue.time_ms(lambda: pack_ops.pack_kernel(fields))
+    plain_ms = glue.time_ms(lambda: pack_ops.pack_plain(fields))
+    library_ms = glue.time_ms(lambda: torch.stack(fields, 0))
+    nbytes = 2 * glue.ROWS * glue.N * 4
+    bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    print(f"  pack kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, torch.stack "
+          f"{library_ms:.5f} ms, bound {bound_ms:.5f} ms ({nbytes} bytes); "
+          f"CUDA events around {glue.REPS} back-to-back calls [{card}]",
+          flush=True)
+    dev = [device_ms(f) for f in (
+        lambda: pack_ops.pack_kernel(fields),
+        lambda: torch.stack(fields, 0))]
+    print("  device time a call (torch.profiler, 50 calls): pack kernel "
+          + ", torch.stack ".join("not measured" if t is None else
+                                  f"{t:.5f} ms" for t in dev)
+          + f" [{card}]", flush=True)
+    entry = dict(
+        name="pack", route="cuda", source="sph_tpu_torch/ops/csrc/pack.cu",
+        replaces="scripts/r4_glue_micro.py:48", launches=launches,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes", library_ms=library_ms,
+        ms_scope=(f"one call, {glue.ROWS} rows x {glue.N}, CUDA events "
+                  f"around {glue.REPS} calls (host dispatch included)"),
+        device_ms=dev[0], library_device_ms=dev[1])
+    return dict(kernels={"pack": entry},
+                launches={"glue_per_pack_call": {"pack": launches
+                                                 / calls[0]}})
+
+
 # name -> phase(card, profile_steps), in running order; a phase that runs a
 # kernel's main path returns its ``kernels`` entries and launches a step
 PHASES = {"small": small_box_phases, "box": box_phases,
           "rworm": reduced_worm_kernels, "rworm_engine": reduced_worm_engine,
           "worm": worm_phases, "small_fast": small_fast_phases,
           "tiny_worm": tiny_worm_phases, "dam": dam_break_phases,
-          "fast_worm": fast_worm_phases}
+          "fast_worm": fast_worm_phases, "exact": exact_phases,
+          "bench": bench_phase, "pack": pack_phase}
 
 
 if __name__ == "__main__":

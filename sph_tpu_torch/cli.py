@@ -1,7 +1,7 @@
 """Command-line interface (counterpart of ``sph_tpu/cli.py``).
 
     python -m sph_tpu_torch run --scene worm|box [--box 30,20,250]
-        [--fill 0.15] --steps N [--engine auto|fast|fastw]
+        [--fill 0.15] --steps N [--engine auto|exact|fast|fastw]
         [--device cuda|cpu] [--ccol N] [--ccol-c N] [--resort-every N]
 
 prints the same scene and timing lines as ``python -m sph_tpu run``. Only
@@ -72,8 +72,10 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--report-every", type=int, default=100)
     p.add_argument("--engine", default="auto",
-                   choices=["auto", "fast", "fastw"],
-                   help="fast = blocked pair engine (walls in the carry); "
+                   choices=["auto", "exact", "fast", "fastw"],
+                   help="exact = neighbour lists (the reference's nearest "
+                        "32 within h; plain PyTorch gathers); "
+                        "fast = blocked pair engine (walls in the carry); "
                         "fastw = wall-compact engine (static walls leave "
                         "the hot carry; auto picks it on wall-heavy "
                         "scenes)")

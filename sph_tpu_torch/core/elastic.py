@@ -1,9 +1,10 @@
 """Elastic (spring) and muscle contraction forces by gather (counterpart of
 ``sph_tpu/core/elastic.py``).
 
-The fast engine's fallback for scenes whose springs anchor outside the
-elastic block (to walls, say), where the compact-slab spring pass cannot
-address the partner rows: per elastic row, walk its padded spring list;
+The exact engine's spring forces (``add_elastic_forces``), and the fast
+engine's fallback for scenes whose springs anchor outside the elastic block
+(to walls, say), where the compact-slab spring pass cannot address the
+partner rows: per elastic row, walk its padded spring list;
 Hooke acceleration ``-(r_hat) * (r - r0) * k`` plus a contraction term
 ``-(r_hat) * signal * muscle_force`` when the spring's muscle is active. The
 activation is a gather from the activation table where sph_tpu contracts a
@@ -51,3 +52,23 @@ def elastic_accel(pos: torch.Tensor, springs: Springs,
         m_on, -act * float(np.float32(params.muscle_force)), 0.0)
 
     return (d * (coef * inv_r)[..., None]).sum(dim=1)
+
+
+def add_elastic_forces(a_ext: torch.Tensor, pos_g: torch.Tensor,
+                       springs: Springs, activation: torch.Tensor,
+                       params: SimParams,
+                       local_offset: int = 0) -> torch.Tensor:
+    """``a_ext`` [n_local, 3] plus the spring + muscle acceleration of each
+    spring row (``index_add``; the row ids are distinct).
+
+    ``local_offset``: global id of a_ext's row 0 (shard start); rows outside
+    the local range go to a scratch row past the end and are dropped, as
+    ``sph_tpu``'s scatter drops them (no host sync)."""
+    if springs.n_elastic == 0:
+        return a_ext
+    a = elastic_accel(pos_g, springs, activation, params)
+    n_loc = a_ext.shape[0]
+    i_loc = springs.row_ids.long() - local_offset
+    i_safe = torch.where((i_loc >= 0) & (i_loc < n_loc), i_loc, n_loc)
+    out = torch.cat([a_ext, a_ext.new_zeros(1, 3)]).index_add_(0, i_safe, a)
+    return out[:n_loc]

@@ -1,9 +1,11 @@
-"""Build and load the Hopper pair-pass kernels (``csrc/pair_pass.cu``).
+"""Build and load the Hopper kernels (``csrc/*.cu``).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, loaded with ctypes. The library is cached under
-``sph_tpu_torch/_build/`` keyed by a hash of the source and the flags, so a
-changed source rebuilds. Nothing is built at import time.
+Each source is compiled with ``nvcc`` for ``sm_90a`` into an object, all of
+them at once (one ``nvcc`` process a source, started together), and the
+objects are linked into one shared library with a plain C interface, loaded
+with ctypes. The library is cached under ``sph_tpu_torch/_build/`` keyed by
+a hash of every source and the flags, so a changed source rebuilds. Nothing
+is built at import time.
 """
 from __future__ import annotations
 
@@ -15,10 +17,11 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-SRC = Path(__file__).resolve().parent / "csrc" / "pair_pass.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SRCS = (CSRC / "pair_pass.cu", CSRC / "pack.cu")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 KINDS = ("density", "rho_star", "viscsurf", "paccel", "boundary", "spring",
          "membrane")
 
@@ -34,8 +37,18 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    key = hashlib.sha256(SRC.read_bytes() + " ".join(FLAGS).encode())
-    return BUILD_DIR / f"libsph_pair_{key.hexdigest()[:16]}.so"
+    key = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in SRCS:
+        key.update(src.name.encode() + src.read_bytes())
+    return BUILD_DIR / f"libsph_kernels_{key.hexdigest()[:16]}.so"
+
+
+def _run(cmd):
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+    return res.stdout + res.stderr
 
 
 def build() -> tuple[Path, str]:
@@ -45,19 +58,30 @@ def build() -> tuple[Path, str]:
     if so.exists():
         return so, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        res = subprocess.run([_nvcc(), *FLAGS, "-o", tmp, str(SRC)],
-                             capture_output=True, text=True, timeout=600)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so, res.stdout + res.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in SRCS]
+        procs = [subprocess.Popen([nvcc, *FLAGS, "-c", "-o", obj, str(src)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SRCS, objs)]
+        logs, failed = [], []
+        for src, proc in zip(SRCS, procs):
+            try:
+                out, _ = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                for p in procs:
+                    p.kill()
+                raise
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        logs.append(_run([nvcc, *ARCH, "-shared", "-o", lib, *objs]))
+        os.replace(lib, so)
+    return so, "".join(logs)
 
 
 def load() -> ctypes.CDLL:
@@ -73,7 +97,14 @@ def load() -> ctypes.CDLL:
             fn.argtypes = [p, i64, p, i64, p, p, p, p, p, p, i32, p, i32,
                            i32, i32, f, f, f, f, i32, p]
             fn.restype = i32
+        lib.sph_pack_rows.argtypes = [p, i32, i64, p, p]
+        lib.sph_pack_rows.restype = i32
         lib.sph_cuda_error_string.argtypes = [i32]
         lib.sph_cuda_error_string.restype = ctypes.c_void_p
         _lib = lib
     return _lib
+
+
+def error_string(err: int) -> str:
+    """cudaGetErrorString of a code the library returned."""
+    return ctypes.string_at(load().sph_cuda_error_string(err)).decode()

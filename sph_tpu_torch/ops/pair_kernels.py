@@ -42,7 +42,6 @@ launch adds one to ``LAUNCHES[kind]``, a gated one to ``LAUNCHES[kind +
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
@@ -588,7 +587,7 @@ def _launch(p: PairPass, tables, own, slab):
             stream,
         )
     if err:
-        msg = ctypes.string_at(lib.sph_cuda_error_string(err)).decode()
-        raise RuntimeError(f"{p.kind} kernel launch failed: {msg} ({err})")
+        raise RuntimeError(f"{p.kind} kernel launch failed: "
+                           f"{_build.error_string(err)} ({err})")
     LAUNCHES[p.launch_key] += 1
     return list(out)

@@ -1,10 +1,11 @@
 """High-level simulation driver (counterpart of
 ``sph_tpu/runtime/simulator.py``).
 
-Owns the device state, steps the physics in chunks of one resort period,
-and surfaces the engine's overflow diagnostics loudly. The fast and the
-wall-compact (fastw) engines are ported; trajectory dumps, checkpoints and
-the adaptive resort ladder are ROADMAP Queue 1 item 9.
+Owns the device state, steps the physics (the fast engines in chunks of
+one resort period), and surfaces the engine's overflow diagnostics loudly.
+The exact, fast and wall-compact (fastw) engines are ported; trajectory
+dumps, checkpoints and the adaptive resort ladder are ROADMAP Queue 1 item
+9.
 """
 from __future__ import annotations
 
@@ -23,7 +24,6 @@ logger = logging.getLogger("sph_tpu_torch")
 
 # engines of sph_tpu not ported yet -> the ROADMAP item that ports them
 _NOT_PORTED = {
-    "exact": "ROADMAP Queue 1 item 8 (the exact engine)",
     "halo": "ROADMAP Queue 1 item 11 (multi-GPU)",
 }
 
@@ -53,10 +53,11 @@ class Simulator:
         dump_dir: str | None = None,
         adaptive_resort: bool = False,
     ):
-        """engine: "auto" (see :func:`resolve_auto_engine`), "fast" (the
-        blocked pair engine, walls in the carry; core/fast.py) or "fastw"
-        (the wall-compact engine; core/fastw.py); the other ``sph_tpu``
-        engines raise NotImplementedError naming their ROADMAP item.
+        """engine: "auto" (see :func:`resolve_auto_engine`), "exact" (the
+        neighbour-list engine, the reference's nearest 32 within h;
+        core/step.py), "fast" (the blocked pair engine, walls in the carry;
+        core/fast.py) or "fastw" (the wall-compact engine; core/fastw.py);
+        "halo" raises NotImplementedError naming its ROADMAP item.
         device: a torch device; "cuda" runs the pair passes as Hopper
         kernels, "cpu" as their plain PyTorch versions. fast_config:
         keyword overrides for ``compute_fast_config`` (fast:
@@ -80,12 +81,22 @@ class Simulator:
         if engine in _NOT_PORTED:
             raise NotImplementedError(
                 f"engine {engine!r} is not ported yet: {_NOT_PORTED[engine]}")
-        if engine not in ("fast", "fastw"):
+        if engine not in ("exact", "fast", "fastw"):
             raise ValueError(f"unknown engine {engine!r}")
         self.engine = engine
 
         fck = dict(fast_config or {})
-        if engine == "fast":
+        if engine == "exact":
+            # Scene-derived cell capacity: the default silently truncates
+            # neighbour candidates on dense scenes (the reference's failure
+            # mode, sphFluid.cl:169); measure the real occupancy instead.
+            from ..core.grid import measured_cell_capacity
+
+            cap = measured_cell_capacity(scene.pos, self.params)
+            if cap > self.params.cell_capacity:
+                self.params = dataclasses.replace(self.params,
+                                                  cell_capacity=cap)
+        elif engine == "fast":
             from ..core.fast import compute_fast_config
 
             self._fast_cfg = compute_fast_config(scene.pos, self.params,
@@ -102,12 +113,14 @@ class Simulator:
             self._wall_static = precompute_wall_static(
                 scene.pos, scene.normal, self.params, self.layout,
                 self._fast_cfg)
-        # one resort period a chunk, so every chunk re-sorts exactly once
-        self._fast_chunk = max(1, self._fast_cfg.resort_every)
-        self._fast_runs = {}
-        # build the period runner now: a scene the engine cannot step
-        # fails here, not at the first step
-        self._fast_run_for(self._fast_chunk)
+        if engine != "exact":
+            # one resort period a chunk, so every chunk re-sorts exactly
+            # once
+            self._fast_chunk = max(1, self._fast_cfg.resort_every)
+            self._fast_runs = {}
+            # build the period runner now: a scene the engine cannot step
+            # fails here, not at the first step
+            self._fast_run_for(self._fast_chunk)
         self.state, self.springs, self.membranes = scene.device_state(
             self.device)
         self._reset_diag()
@@ -153,6 +166,11 @@ class Simulator:
         return self._fast_runs[n]
 
     def _run(self, n: int):
+        if self.engine == "exact":
+            from ..core.step import multi_step
+
+            return multi_step(self.state, self.springs, self.membranes,
+                              self.params, self.layout, n)
         # chunks of one resort period (+ single steps for the remainder),
         # so every chunk re-sorts exactly once, as in sph_tpu
         state = self.state
@@ -192,13 +210,28 @@ class Simulator:
         return self.timer.elapsed_ms
 
     def check_overflow(self) -> dict:
-        """Read-and-reset diagnostics since the last check: tile overflow
-        (tiles the TPU kernels' static caps would drop: fastw counts its
-        tables of every resort, fast the main tables at the current
-        positions, ``tile_table_stats``, as sph_tpu does), fastw's shell
-        overflow (dropped moving-wall pairs), and the worst per-resort-period
+        """Read-and-reset diagnostics since the last check. The exact
+        engine: ``cell_overflow``, particles beyond ``cell_capacity`` in
+        their 2h cell at the current positions (dropped neighbour
+        candidates). The fast engines: tile overflow (tiles the TPU
+        kernels' static caps would drop: fastw counts its tables of every
+        resort, fast the main tables at the current positions,
+        ``tile_table_stats``, as sph_tpu does), fastw's shell overflow
+        (dropped moving-wall pairs), and the worst per-resort-period
         pair-approach bound in units of h (2x the summed per-step max
         displacement). Warns on any overflow and on drift > 0.25 h."""
+        if self.engine == "exact":
+            from ..core.grid import max_cell_occupancy
+
+            out = {"cell_overflow": max(
+                0, max_cell_occupancy(self.get_position(), self.params)
+                - self.params.cell_capacity)}
+            if out["cell_overflow"]:
+                logger.warning(
+                    "capacity overflow at step %d: %s — neighbour "
+                    "candidates are being dropped; raise cell_capacity",
+                    self.step_count, out)
+            return out
         out = {"cell_overflow": 0}
         if self.engine == "fast":
             from ..core.fast import tile_caps, tile_table_stats
@@ -239,6 +272,21 @@ class Simulator:
 
     def get_velocity(self) -> np.ndarray:
         return self.state.vel.cpu().numpy()
+
+    def get_density(self) -> np.ndarray:
+        return self.get_diagnostics()["rho"]
+
+    def get_pressure(self) -> np.ndarray:
+        return self.get_diagnostics()["pressure"]
+
+    def get_diagnostics(self) -> dict:
+        """The exact engine's neighbour search and PCISPH loop on the
+        current state, on every engine (as in sph_tpu): rho, pressure,
+        neighbor_count, neighbor_overflow, cell_overflow."""
+        from ..core.step import diagnostics
+
+        return {k: v.cpu().numpy()
+                for k, v in diagnostics(self.state, self.params).items()}
 
     def get_muscle_activation(self) -> np.ndarray:
         return self.state.muscle_activation.cpu().numpy()

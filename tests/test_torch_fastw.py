@@ -423,7 +423,7 @@ def test_port_steps_reduced_worm(worm):
 
 
 def test_unported_paths_raise():
-    """The exact engine, dumps, the adaptive resort and checkpoints raise;
+    """The halo engine, dumps, the adaptive resort and checkpoints raise;
     a wall-free blob, which auto sends to the fast engine, steps."""
     params = params_from(JParams(**BOX))
     box = generate_liquid_box_scene(params, fill_fraction=0.5)
@@ -433,8 +433,8 @@ def test_unported_paths_raise():
     sim.step(2)
     assert sim.step_count == 2 and np.isfinite(sim.get_position()).all()
     assert np.abs(sim.get_position() - blob.pos).max() > 1e-3
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        Simulator(box, params, engine="exact", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        Simulator(box, params, engine="halo", device="cpu")
     for kw in (dict(dump_dir="frames"), dict(adaptive_resort=True)):
         with pytest.raises(NotImplementedError):
             Simulator(box, params, device="cpu", **kw)
