@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """GPU smoke check of the PyTorch port (``sph_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--profile-steps N] [--only PHASE,...]
+    python3 chip_smoke.py [--profile-steps N] [--only PHASE,...] [--variants]
 
 Phases (any failure raises and exits nonzero, printing no result):
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the Hopper pair-pass kernels from ``sph_tpu_torch/ops/
-   csrc`` (nvcc, sm_90a) and prints the build seconds;
+   csrc`` (nvcc, sm_90a) and prints the build seconds and each kernel's
+   registers, shared memory, stack and spills from ``-Xptxas -v``;
 3. kernel vs plain (small): a small box (8h, fill 0.5) is stepped until its
    pool rests on the floor; the packs and tables that one more sort + step
    hand to each pair pass, from that state with a seeded downward velocity
@@ -118,16 +119,38 @@ Phases (any failure raises and exits nonzero, printing no result):
    ``sph_tpu_torch.scripts.r4_glue_micro.run()`` with its launches and
    ``pack`` calls counted (one launch a call), its table of times, and the
    kernel, plain and ``torch.stack`` times beside the kernel's bound (8
-   rows read and written once over the card's memory rate).
+   rows read and written once over the card's memory rate);
+19. the ring driver against the first design: the rho* and paccel kernels
+   (``pair_ring``) against ``pair_pass`` for the same functors (entry points
+   ``sph_pair_<kind>_prev``, which only this phase calls) on every recorded
+   launch of the fastw worm and box (phases 10 and 6: raw_mm, raw_ms,
+   raw_sm, pacc_mm, pacc_ms) and of the fast engine's paccel on the
+   dam-break and the fast worm, ungated and at sub 8/16/32 (phases 14 and
+   15; with ``--only ab`` the inputs come from one resort period of each
+   path): bitwise where the shipped configuration keeps one thread a row,
+   else held as phase 3 holds a kernel to its plain version; the two timed
+   in turns (previous, ring, ring, previous; CUDA events around 20
+   launches) and by torch.profiler device time, beside the bound (paccel
+   charged for its early exit, ``PACCEL_TEST_FLOPS``, and the all-pairs
+   charge beside it); the host microseconds of one pair launch. Checks no
+   spill in the shipped ring kernels. ``--variants`` also builds the
+   variant library (``-DSPH_PAIR_VARIANTS``) and runs the matrix (rows a
+   thread, threads a row, stages, rows a CTA, early exit) on the same
+   launches, each held to the first design and timed in turns with it,
+   with each variant's hot-loop SASS instructions a pair (``cuobjdump``)
+   and issue-rate bound, ranked by the fastw worm's per-step total.
 
 Each phase prints its seconds. ``--only`` runs the named phases alone
 (small: 3-4, box: 5-6, rworm: 7, rworm_engine: 8, worm: 9-10, small_fast:
 11-12, tiny_worm: 13, dam: 14, fast_worm: 15, exact: 16, bench: 17, pack:
-18) while iterating; the run then prints no result lines and exits 2.
+18, ab: 19) while iterating; the run then prints no result lines and exits
+2.
 
 Ends with a JSON line of per-kernel results (each kernel's numbers from the
 path that runs it at its main shapes, with its launches a step on every
-path) and, last, the one-line ``{"ok": true, "device": {...}}``.
+path, its registers, and for the ring kernels the in-call A/B's per-step
+times, ``prev_ms`` beside ``ab_ms`` and their profiler device times) and,
+last, the one-line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -135,6 +158,8 @@ import argparse
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -210,6 +235,11 @@ PEAK_BYTES_S = 3.35e12
 # for the pairs within r0.
 PAIR_FLOPS = {"density": 13, "rho_star": 13, "viscsurf": 25, "paccel": 29,
               "boundary": 22}
+# paccel on the ring driver exits early beyond h: the distance and radius
+# test (17, the exit's two compares included) for every candidate pair, the
+# force body (12) for the pairs that run it (``PairPass.near_pairs``).
+# PAIR_FLOPS["paccel"] stays the all-pairs charge, printed beside it.
+PACCEL_TEST_FLOPS, PACCEL_NEAR_FLOPS = 17, 12
 SPRING_MATCH_FLOPS = 3 + 28
 MEMBRANE_TEST_FLOPS, MEMBRANE_NEAR_FLOPS = 12, 7 * 24 + 12
 # the reduced worm: full length in a narrower pool, every spring anchor
@@ -401,9 +431,9 @@ def pass_bound(p, tables, own, slab, far, data_work):
     """(candidate pairs, bound ms, "operations" | "bytes") of one launch:
     pairs = ``computed_pairs``; operations = pairs x the functor's count
     (see ``PAIR_FLOPS``; ``data_work`` holds the elastic passes'
-    data-dependent pair counts) over the card's f32 peak; bytes = the pack
-    rows the pass reads, its tables and its outputs, each once, over the
-    card's memory rate."""
+    data-dependent pair counts, paccel's near pairs are counted here) over
+    the card's f32 peak; bytes = the pack rows the pass reads, its tables
+    and its outputs, each once, over the card's memory rate."""
     n_out, own_rows, slab_rows = pk._rows(p)
     pairs = computed_pairs(p, tables, own, far)[0]
     nbytes = 4 * (slab_rows * slab.shape[1] + n_out * p.n_pad
@@ -415,6 +445,9 @@ def pass_bound(p, tables, own, slab, far, data_work):
     elif p.kind == "membrane":
         ops = (pairs * MEMBRANE_TEST_FLOPS
                + data_work["membrane"] * MEMBRANE_NEAR_FLOPS)
+    elif p.kind == "paccel":
+        ops = (pairs * PACCEL_TEST_FLOPS
+               + p.near_pairs(tables, own, slab) * PACCEL_NEAR_FLOPS)
     else:
         ops = pairs * PAIR_FLOPS[p.kind]
     t_ops = ops / PEAK_F32_FLOPS * 1e3
@@ -491,9 +524,11 @@ def time_ms(fn, reps, warm=True):
 
 
 def device_ms(fn, reps=50):
-    """Mean device milliseconds a call of the CUDA kernels it launches
+    """Mean device milliseconds a call of the one CUDA kernel it launches
     (torch.profiler over ``reps`` calls, after one untimed call), or None
-    when the profiler recorded no kernel."""
+    unless the profiler recorded exactly ``reps`` kernels: after a long
+    profiled window in the same process (``--profile-steps``) later
+    profiler windows were seen to drop kernel records and undercount."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     fn()
@@ -504,9 +539,10 @@ def device_ms(fn, reps=50):
             fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == cuda)
-    return us / reps / 1e3 if us else None
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    if sum(e.count for e in kernels) != reps:
+        return None
+    return sum(e.self_device_time_total for e in kernels) / reps / 1e3
 
 
 def engine_run(scene, params, dev, engine, steps, cfg_kw):
@@ -659,7 +695,7 @@ def profile(sim, steps, card):
     kernels = [e for e in events if e.device_type == cuda]
     dev_us = sum(e.self_device_time_total for e in kernels)
     pair_us = sum(e.self_device_time_total for e in kernels
-                  if "pair_pass" in e.key)
+                  if "pair_pass" in e.key or "pair_ring" in e.key)
     print(f"profile: {steps} steps, wall {wall_us / steps / 1e3:.4f} "
           f"ms/step (profiler on) [{card}]", flush=True)
     if dev_us == 0:
@@ -685,6 +721,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-steps", type=int, default=0,
                     help="main-path steps to run under torch.profiler "
                          "after the timed run (0: none)")
+    ap.add_argument("--variants", action="store_true",
+                    help="phase ab also builds and runs the ring driver's "
+                         "variant matrix")
     ap.add_argument("--only", default="",
                     help="comma-separated phases to run alone while "
                          f"iterating ({', '.join(PHASES)}); the run then "
@@ -692,6 +731,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     only = [s for s in args.only.split(",") if s] or list(PHASES)
     check(set(only) <= set(PHASES), f"--only {only}")
+    global VARIANTS
+    VARIANTS = args.variants
 
     # 1. device
     if not torch.cuda.is_available():
@@ -713,9 +754,8 @@ def main(argv=None) -> int:
     _build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {so.name}",
           flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  " + line.strip(), flush=True)
+    BUILD_REPORT[:] = ptxas_report(log)
+    print_build_report(BUILD_REPORT, "build")
 
     results = {}
     for key, phase in PHASES.items():
@@ -735,6 +775,9 @@ def main(argv=None) -> int:
         if res:
             kernels.update(res["kernels"])
             per_path.update(res["launches"])
+    for res in results.values():       # the A/B's numbers beside them
+        for key, add in (res or {}).get("extra", {}).items():
+            kernels[key].update(add)
     for key, entry in kernels.items():
         entry["launches_per_step"] = {
             path: n for path, counts in per_path.items()
@@ -804,6 +847,7 @@ def box_phases(card, profile_steps):
                                sim._wall_static, sim.state, sim.springs,
                                sim.membranes)
     compare(calls, "box", box_edge(params))
+    stash_ab("box", calls, {n: PASSES[n][1] for n in calls})
     for pname, (p, tables, own, slab, *_) in sorted(calls.items()):
         ms = time_ms(lambda: p.kernel(tables, own, slab), 20)
         plain_ms = time_ms(lambda: p.plain(tables, own, slab), 3)
@@ -902,6 +946,7 @@ def worm_phases(card, profile_steps):
           "the spring launch did not take the shared-memory opt-in branch")
     far = box_edge(params)
     errs = compare(calls, "worm", far)
+    stash_ab("worm", calls, {n: PASSES[n][1] for n in calls})
     per_kind = {k: dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                         ops_ms=0.0) for k in PER_STEP}
     for pname, (p, tables, own, slab, *_) in sorted(calls.items()):
@@ -940,7 +985,13 @@ def kernel_entries(per_kind, launches, scope):
         bound_by=("operations" if 2 * acc["ops_ms"] >= acc["bound_ms"]
                   else "bytes"),
         library_ms=None, ms_scope=scope,
+        registers=_regs(shipped_kernel(kind.removesuffix("_sub"),
+                                       kind.endswith("_sub"))),
     ) for kind, acc in per_kind.items()}
+
+
+def _regs(report_entry):
+    return report_entry["regs"] if report_entry else None
 
 
 # ---------------------------------------------------------------------------
@@ -1180,6 +1231,7 @@ def dam_break_phases(card, profile_steps):
                                sim.springs, sim.membranes)
     errs = compare(calls, "dam", far)
     per_kind = time_passes(calls, errs, far, card, "dam", plain_reps=1)
+    fast_ab_inputs(params, sim, sim.state, "dam")
     return dict(
         kernels=kernel_entries({"density": per_kind["density"]}, launches,
                                "one step's launches, fast, dam-break"),
@@ -1245,6 +1297,7 @@ def fast_worm_phases(card, profile_steps):
               f"{counts[0]:.1f} columns a particle ungated, {counts[1]:.1f} "
               f"at sub 32 ({counts[1] / counts[0]:.3f}); kernel "
               f"{times[0]:.4f} / {times[1]:.4f} ms [{card}]", flush=True)
+    fast_ab_inputs(params, sim, sim32.state, "fast_worm")
     entries = {}
     for label, s in (("fworm", sim), ("fw32", sim32)):
         calls = record_fast_inputs(params, s.layout, s._fast_cfg, sim32.state,
@@ -1450,10 +1503,543 @@ def pack_phase(card, profile_steps):
         bound_by="bytes", library_ms=library_ms,
         ms_scope=(f"one call, {glue.ROWS} rows x {glue.N}, CUDA events "
                   f"around {glue.REPS} calls (host dispatch included)"),
-        device_ms=dev[0], library_device_ms=dev[1])
+        device_ms=dev[0], library_device_ms=dev[1],
+        # the glue's n is a multiple of 4: the float4 instantiation
+        registers=_regs(next((r for r in BUILD_REPORT
+                              if r["key"] == ("pack_rows", "float4")), None)))
     return dict(kernels={"pack": entry},
                 launches={"glue_per_pack_call": {"pack": launches
                                                  / calls[0]}})
+
+
+# ---------------------------------------------------------------------------
+# the ring driver: build report, in-call A/B against the first design, the
+# variant matrix (phase 19, ``--variants``)
+# ---------------------------------------------------------------------------
+
+FUNCTORS = {"density": "Density", "rho_star": "RhoStar",
+            "viscsurf": "ViscSurf", "paccel": "PAccel",
+            "boundary": "Boundary", "spring": "Spring",
+            "membrane": "Membrane"}
+# inputs of the ring kernels, label -> {name: (call, launches a step)},
+# filled by the phases that record them (5, 10, 14, 15); phase 19 records
+# what is missing from one resort period of the path (``--only ab``)
+AB_INPUTS = {}
+AB_LABELS = ("worm", "box", "dam", "fast_worm")
+AB_REPS = 20
+SMS, ISSUE_PER_CLK = 132, 128  # H100 SXM: SMs; thread-instructions/clk/SM
+# the ptxas report of the shipped library (filled in main); --variants
+BUILD_REPORT = []
+VARIANTS = False
+
+
+def ring_consts() -> dict:
+    """The shipped ring configuration, ``k<Rho|Pacc><Name>`` constants of
+    csrc/pair_pass.cu (``RhoR`` -> 2, ``PaccExit`` -> 1, ...)."""
+    src = open(os.path.join(REPO, SOURCE)).read()
+    words = {"true": 1, "false": 0}
+    return {m[1]: words[m[2]] if m[2] in words else int(m[2])
+            for m in re.finditer(r"\bk((?:Rho|Pacc)\w+) = (\w+)", src)}
+
+
+def describe(mangled):
+    """(driver, kind, label) of a kernel from its mangled name."""
+    driver = next((d for d in ("pair_ring", "pair_pass", "pack_rows")
+                   if f"{len(d)}{d}" in mangled), "?")
+    kind = next((k for k, f in FUNCTORS.items() if f"{len(f)}{f}" in mangled),
+                "")
+    ints = [int(x) for x in re.findall(r"Li(\d+)E", mangled)]
+    bools = [int(x) for x in re.findall(r"Lb([01])E", mangled)]
+    if driver == "pair_ring" and len(ints) >= 2 and len(bools) >= 2:
+        label = (f"pair_ring<{FUNCTORS[kind]}, R {ints[0]}, TPR {ints[1]}, "
+                 f"exit {bools[0]}, gated {bools[1]}>")
+        key = (kind, ints[0], ints[1], bools[0], bools[1])
+    elif driver == "pair_pass" and bools:
+        label = f"pair_pass<{FUNCTORS[kind]}, gated {bools[0]}>"
+        key = (kind, bools[0])
+    elif driver == "pack_rows":
+        elem = "float4" if "6float4" in mangled else "float"
+        label, key = f"pack_rows<{elem}>", (driver, elem)
+    else:
+        label, key = driver, (driver,)
+    return dict(driver=driver, kind=kind, label=label, key=key)
+
+
+def ptxas_report(log):
+    """[dict(mangled, driver, kind, label, key, regs, smem, stack,
+    spill_st, spill_ld)] of each kernel in an ``-Xptxas -v`` log."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = dict(mangled=m[1], regs=None, smem=0, stack=None,
+                       spill_st=None, spill_ld=None, **describe(m[1]))
+            out.append(cur)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m and cur is not None and m[1] != cur["mangled"]:
+            cur = None   # a device function's report, not the kernel's
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m[1]), spill_st=int(m[2]),
+                       spill_ld=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["regs"] = int(m[1])
+            m2 = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m2[1]) if m2 else 0
+    return out
+
+
+def shipped_kernel(kind, gated, report=None):
+    """The ptxas entry of the kernel that kind's entry point launches."""
+    if kind in pk.RING_STAGES:
+        c = ring_consts()
+        pre = "Rho" if kind == "rho_star" else "Pacc"
+        key = (kind, c[pre + "R"], c[pre + "TPR"], c.get(pre + "Exit", 0),
+               int(gated))
+    else:
+        key = (kind, int(gated))
+    return next((r for r in report or BUILD_REPORT if r["key"] == key), None)
+
+
+def print_build_report(report, label):
+    print(f"  {label}: registers, shared memory and spills of each kernel "
+          "(-Xptxas -v):", flush=True)
+    for r in sorted(report, key=lambda r: r["label"]):
+        print(f"    {r['label']:58s} {r['regs']} registers, {r['smem']} B "
+              f"static smem, {r['stack']} B stack, {r['spill_st']}/"
+              f"{r['spill_ld']} B spill stores/loads", flush=True)
+
+
+FP32_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET")
+
+
+def sass_loops(so):
+    """{mangled name: the hot loop's static instruction counts} from
+    ``cuobjdump -sass``, or None where the toolkit has no cuobjdump. The hot
+    loop is the innermost backward branch's span holding the most FP32
+    instructions; ``skippable`` counts the instructions that forward
+    branches inside it can jump over (an early exit's body)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return None
+    res = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                         text=True, timeout=600)
+    if res.returncode != 0:
+        return None
+    funcs, cur = {}, None
+    for line in res.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m[1], [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if m and cur is not None:
+            cur.append((int(m[1], 16), m[2].strip()))
+    return {name: hot_loop(ins) for name, ins in funcs.items()}
+
+
+def hot_loop(ins):
+    idx = {a: i for i, (a, _) in enumerate(ins)}
+    back, fwd = [], []
+    for i, (a, text) in enumerate(ins):
+        m = re.search(r"\bBRA\b\S*\s+[^0-9]*0x([0-9a-f]+)", text)
+        if not m or int(m[1], 16) not in idx:
+            continue
+        j = idx[int(m[1], 16)]
+        (back if j <= i else fwd).append((min(i, j), max(i, j)))
+    inner = [(j, i) for j, i in back
+             if not any(j <= j2 and i2 <= i and (j2, i2) != (j, i)
+                        for j2, i2 in back)]
+
+    def op(text):
+        return text.split()[1 if text.startswith("@") else 0]
+
+    def n_fp(span):
+        return sum(op(t).split(".")[0] in FP32_OPS
+                   for _, t in ins[span[0]:span[1] + 1])
+
+    if not inner:
+        return None
+    j, i = max(inner, key=n_fp)
+    ops = [op(t) for _, t in ins[j:i + 1]]
+    skip = set()
+    for a, b in fwd:           # a forward branch at a jumps to b
+        if j <= a < b <= i:
+            skip.update(range(a + 1, b))
+    width = {"64": 2, "128": 4}
+    return dict(
+        n=len(ops), skippable=len(skip),
+        fp32=sum(o.split(".")[0] in FP32_OPS for o in ops),
+        mufu=sum(o.startswith("MUFU") for o in ops),
+        lds=sum(o.startswith("LDS") for o in ops),
+        # floats the loop's shared loads bring in
+        lds_floats=sum(width.get(o.split(".")[-1], 1)
+                       for o in ops if o.startswith("LDS")))
+
+
+def per_pair(loop, kind, rows):
+    """Static SASS instructions a pair of the hot loop: (all, on the
+    path that skips the skippable instructions, FP32, shared loads), from
+    the floats its shared loads bring in (each float feeds ``rows`` rows,
+    one pair each)."""
+    if not loop or not loop["lds_floats"]:
+        return None
+    pairs = loop["lds_floats"] / _SPECS_SLAB[kind] * rows
+    return tuple(x / pairs for x in (loop["n"], loop["n"] - loop["skippable"],
+                                     loop["fp32"], loop["lds"]))
+
+
+_SPECS_SLAB = {"rho_star": pk.ITER_COLS, "paccel": pk.PACC_COLS}
+
+
+def max_sm_clock_hz():
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    try:
+        return float(res.stdout.split()[0]) * 1e6
+    except (IndexError, ValueError):
+        return None
+
+
+def issue_ms(pairs, instr, clock):
+    """The issue-rate bound: pairs x instructions a pair over the card's
+    thread-instruction issue rate (4 warp-instructions a clock an SM)."""
+    return pairs * instr / (SMS * ISSUE_PER_CLK * clock) * 1e3
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def stash_ab(label, calls, mults):
+    AB_INPUTS[label] = {name: (c, mults[name]) for name, c in calls.items()
+                        if c[0].kind in pk.RING_STAGES}
+
+
+def fast_ab_inputs(params, sim, state, label):
+    """The fast engine's paccel launch on ``state``, ungated and at sub
+    8/16/32 (the sim's config otherwise)."""
+    out = {}
+    for sub in SUBS:
+        cfg = dataclasses.replace(sim._fast_cfg, sub=sub)
+        calls = record_fast_inputs(params, sim.layout, cfg, state,
+                                   sim.springs, sim.membranes)
+        out[f"paccel_s{sub}" if sub else "paccel"] = (
+            calls["paccel"], FAST_PASSES["paccel"])
+    AB_INPUTS[label] = out
+
+
+def ab_record(label):
+    """Record ``label``'s ring-kernel inputs after one resort period of its
+    path (when the phase that records them did not run)."""
+    params = SimParams()
+    t0 = time.perf_counter()
+    if label in ("box", "worm"):
+        scene = (generate_liquid_box_scene if label == "box"
+                 else generate_worm_scene)(params)
+        sim = Simulator(scene, params, engine="auto", device="cuda")
+        first_period(sim, label)
+        calls = record_step_inputs(params, sim.layout, sim._fast_cfg,
+                                   sim._wall_static, sim.state, sim.springs,
+                                   sim.membranes)
+        stash_ab(label, calls, {n: PASSES[n][1] for n in calls})
+    elif label == "dam":
+        scene = generate_liquid_box_scene(params, fill_fraction=0.8)
+        sim = Simulator(scene, params, engine="auto", device="cuda")
+        first_period(sim, "dam-break")
+        fast_ab_inputs(params, sim, sim.state, label)
+    else:
+        scene = generate_worm_scene(params)
+        sim = Simulator(scene, params, engine="fast", device="cuda",
+                        fast_config=R4)
+        first_period(sim, "fast worm")
+        fast_ab_inputs(params, sim, sim.state, label)
+    print(f"  {label}: inputs recorded after one resort period "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def tile_stats(p, tables):
+    cnt = tables[4].float()
+    act = cnt[cnt > 0]
+    return float(act.mean()), int(cnt.max()), int(act.numel())
+
+
+def prev_call(p, tables, own, slab):
+    return pk._call(p, tables, own, slab, entry=f"sph_pair_{p.kind}_prev")
+
+
+def held_to(a, b, call, bitwise, scales, far):
+    """(ok, max|diff| over real own rows): outputs ``a`` against ``b``
+    bitwise, or (a kernel that splits rows) as ``compare`` holds a kernel
+    to its plain version:
+    KERNEL_TOL x the rounding scale's max over real own rows, a larger
+    row's own (the scales cached in ``scales`` by call)."""
+    p, tables, own, slab = call[:4]
+    ob = int(tables[5][0])
+    real = own[0, ob:ob + p.n_pad] < far
+    err = max(float((x - y)[real].abs().max()) for x, y in zip(a, b))
+    if bitwise:
+        return all(torch.equal(x, y) for x, y in zip(a, b)), err
+    if id(call) not in scales:
+        scale = p.rounding_scale(tables, own, slab)
+        scales[id(call)] = scale if isinstance(scale, tuple) else (scale,)
+    scale = scales[id(call)]
+    ok = True
+    for group in pk.OUTPUT_GROUPS[p.kind]:
+        row = torch.stack([scale[i] for i in group]).amax(0)
+        tol = torch.clamp(KERNEL_TOL * row,
+                          min=KERNEL_TOL * float(row[real].max()))
+        ok &= all(bool(((a[i] - b[i]).abs() <= tol).all()) for i in group)
+    return ok, err
+
+
+def host_launch_us(call, reps=200):
+    """Host microseconds of one pair launch and of its parts, host clock
+    over ``reps`` calls without a synchronise."""
+    p, tables, own, slab = call[:4]
+    n_out = pk._rows(p)[0]
+    parts = {
+        "whole launch (PairPass.kernel)":
+            lambda: p.kernel(tables, own, slab),
+        "_check": lambda: pk._check(p, tables, own, slab),
+        "torch.empty of the outputs": lambda: torch.empty(
+            (n_out, p.n_pad), dtype=torch.float32, device=own.device),
+    }
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
+def ab_phase(card, profile_steps):
+    # 19. the ring kernels against the first design (pair_pass) on every
+    # recorded launch: bitwise, then timed in turns
+    consts = ring_consts()
+    far = box_edge(SimParams())
+    for label in AB_LABELS:
+        if label not in AB_INPUTS:
+            ab_record(label)
+    for r in (shipped_kernel(k, g) for k in pk.RING_STAGES for g in (0, 1)):
+        if r is not None:
+            check(r["spill_st"] == 0 and r["spill_ld"] == 0,
+                  f"{r['label']} spills: {r}")
+    totals, scales = {}, {}
+    for label in AB_LABELS:
+        for name, (call, mult) in sorted(AB_INPUTS[label].items()):
+            p, tables, own, slab = call[:4]
+            pre = "Rho" if p.kind == "rho_star" else "Pacc"
+            bitwise = consts[pre + "TPR"] == 1
+            new = pk._call(p, tables, own, slab)
+            old = prev_call(p, tables, own, slab)
+            torch.cuda.synchronize()
+            ok, err = held_to(new, old, call, bitwise, scales, far)
+            check(ok, f"ab {label} {name}: the ring kernel differs from the "
+                  f"first design (max|diff| {err:.3e})")
+            ts = [time_ms(f, AB_REPS) for f in (
+                lambda: prev_call(p, tables, own, slab),
+                lambda: pk._call(p, tables, own, slab),
+                lambda: pk._call(p, tables, own, slab),
+                lambda: prev_call(p, tables, own, slab))]
+            prev_ms, new_ms = (ts[0] + ts[3]) / 2, (ts[1] + ts[2]) / 2
+            # device time without the host's dispatch, which sets the
+            # CUDA-event time of the short launches
+            dev = [device_ms(f) for f in (
+                lambda: prev_call(p, tables, own, slab),
+                lambda: pk._call(p, tables, own, slab))]
+            pairs, bound_ms, by = pass_bound(p, tables, own, slab, far, None)
+            all_ms = pairs * PAIR_FLOPS[p.kind] / PEAK_F32_FLOPS * 1e3
+            mean_t, max_t, act = tile_stats(p, tables)
+            ctas = p.n_blocks * p.block // consts[pre + "RowsCta"]
+            print(f"  ab {label:9s} {name:11s} {p.launch_key:10s} blocks "
+                  f"{p.n_blocks} ({act} with tiles: {mean_t:.2f} mean, "
+                  f"{max_t} max) ccol {p.ccol}: "
+                  f"{'bitwise' if bitwise else 'within tolerance'} "
+                  f"(max|diff| {err:.1e}); previous {ts[0]:.4f} / "
+                  f"{ts[3]:.4f} ms ({p.n_blocks} CTAs), ring {ts[1]:.4f} / "
+                  f"{ts[2]:.4f} ms ({ctas} CTAs), x{prev_ms / new_ms:.3f}; "
+                  f"device {fmt_ms(dev[0])} / {fmt_ms(dev[1])} ms; "
+                  f"bound {bound_ms:.5f} ms ({by}; all-pairs charge "
+                  f"{all_ms:.5f}), bound/ring {bound_ms / new_ms:.3f} "
+                  f"(x{mult}/step) [{card}]", flush=True)
+            # the fastw paths sum a kind's launches; the fast paths keep
+            # each gate setting apart
+            group = p.kind if label in ("worm", "box") else name
+            acc = totals.setdefault((label, group),
+                                    dict(prev=0.0, new=0.0, bound=0.0,
+                                         all_pairs=0.0, err=0.0,
+                                         prev_dev=0.0, new_dev=0.0))
+            acc["prev"] += mult * prev_ms
+            acc["new"] += mult * new_ms
+            for key, ms in zip(("prev_dev", "new_dev"), dev):
+                acc[key] = (None if ms is None or acc[key] is None
+                            else acc[key] + mult * ms)
+            acc["bound"] += mult * bound_ms
+            acc["all_pairs"] += mult * all_ms
+            acc["err"] = max(acc["err"], err)
+    for (label, group), a in sorted(totals.items()):
+        print(f"  ab {label:9s} {group:10s} per step: previous {a['prev']:.4f}"
+              f" ms, ring {a['new']:.4f} ms (x{a['prev'] / a['new']:.3f}); "
+              f"device {fmt_ms(a['prev_dev'])} / {fmt_ms(a['new_dev'])} ms; "
+              f"bound {a['bound']:.5f} ms = {a['bound'] / a['new']:.3f} of "
+              f"the ring's time (all-pairs charge {a['all_pairs']:.5f}) "
+              f"[{card}]", flush=True)
+    for kind in pk.RING_STAGES:
+        a = totals[("worm", kind)]
+        print(f"  ab worm {kind}: the ring kernel "
+              f"{'is' if a['new'] < a['prev'] else 'is NOT'} below the "
+              f"previous design a step", flush=True)
+
+    call = AB_INPUTS["worm"]["pacc_mm"][0]
+    print(f"  host time of one pair launch (pacc_mm, 200 calls, no "
+          f"synchronise) [{card}]:", flush=True)
+    for name, us in host_launch_us(call).items():
+        print(f"    {name:34s} {us:8.2f} us", flush=True)
+
+    def extra(label, group, kind, gated):
+        a = totals[(label, group)]
+        cur = shipped_kernel(kind, gated)
+        prev = next((r for r in BUILD_REPORT
+                     if r["key"] == (kind, int(gated))), None)
+        return dict(prev_ms=a["prev"], ab_ms=a["new"],
+                    prev_device_ms=a["prev_dev"], ab_device_ms=a["new_dev"],
+                    ab_scope=f"in-call A/B, {label}, CUDA events around "
+                             f"{AB_REPS} launches, previous/ring/ring/"
+                             "previous",
+                    registers=cur and cur["regs"],
+                    prev_registers=prev and prev["regs"],
+                    bound_ms_all_pairs=a["all_pairs"])
+    if VARIANTS:
+        variant_matrix(card, far)
+    return dict(kernels={}, launches={}, extra={
+        "paccel": extra("worm", "paccel", "paccel", False),
+        "rho_star": extra("worm", "rho_star", "rho_star", False),
+        "paccel_sub": extra("fast_worm", "paccel_s32", "paccel", True)})
+
+
+def variant_configs(kind):
+    """(R, TPR, exit, stages, rows a CTA) of the matrix."""
+    out = []
+    for r in (1, 2, 4):
+        for tpr in (1, 2, 4):
+            for rows in (64, 128, 256):
+                nthr = rows // r * tpr
+                if nthr % 32 or nthr > 512:
+                    continue
+                for stages in (2, 3):
+                    for ex in ((0, 1) if kind == "paccel" else (0,)):
+                        out.append((r, tpr, ex, stages, rows))
+    return out
+
+
+def variant_matrix(card, far):
+    """Every ring variant on the recorded launches of the fastw worm, the
+    dam-break and the fast worm: held to the first design, timed in turns
+    with it, ranked by the fastw worm's per-step total."""
+    t0 = time.perf_counter()
+    so, log = _build.build(variants=True)
+    lib = _build.load(variants=True)
+    print(f"variants: built in {time.perf_counter() - t0:.1f} s -> "
+          f"{so.name}", flush=True)
+    report = [r for r in ptxas_report(log) if r["driver"] != "pack_rows"]
+    print_build_report(report, "variants")
+    sass = sass_loops(so)
+    clock = max_sm_clock_hz()
+    print(f"  SASS: {'cuobjdump' if sass is not None else 'not available'}"
+          f"; max SM clock {clock} Hz", flush=True)
+    loops = {}
+    for r in report:
+        loop = (sass or {}).get(r["mangled"])
+        rows = r["key"][1] if r["driver"] == "pair_ring" else 1
+        pp = per_pair(loop, r["kind"], rows) if r["kind"] in _SPECS_SLAB \
+            else None
+        loops[r["key"]] = pp
+        if pp:
+            print(f"    {r['label']:58s} hot loop {loop['n']} instructions "
+                  f"({loop['skippable']} skippable): {pp[0]:.2f} a pair "
+                  f"({pp[1]:.2f} on the exit path), FP32 {pp[2]:.2f}, "
+                  f"shared loads {pp[3]:.3f}", flush=True)
+    res, scales = {}, {}
+    for label in ("worm", "dam", "fast_worm"):
+        for name, (call, mult) in sorted(AB_INPUTS[label].items()):
+            p, tables, own, slab = call[:4]
+            kid = 0 if p.kind == "rho_star" else 1
+            ref = prev_call(p, tables, own, slab)
+            pairs = computed_pairs(p, tables, own, far)[0]
+            _, flop_ms, _ = pass_bound(p, tables, own, slab, far, None)
+            mean_t, max_t, act = tile_stats(p, tables)
+            print(f"  shape {label} {name} ({p.launch_key}): {p.n_blocks} "
+                  f"blocks, tiles a block {mean_t:.2f} mean / {max_t} max "
+                  f"over {act}, {pairs:.4g} candidate pairs, FLOP bound "
+                  f"{flop_ms:.5f} ms", flush=True)
+            gated = int(p.gated)
+            prev_pp = loops.get((p.kind, gated))
+            if prev_pp and clock:
+                print(f"    previous: {prev_pp[0]:.2f} instructions a pair,"
+                      f" issue bound {issue_ms(pairs, prev_pp[0], clock):.5f}"
+                      " ms", flush=True)
+            for key, pp in sorted(loops.items()):
+                if (pp and clock and len(key) == 5 and key[0] == p.kind
+                        and key[4] == gated):
+                    print(f"    R {key[1]} TPR {key[2]} exit {key[3]}: "
+                          f"{pp[0]:.2f} ({pp[1]:.2f}) instructions a pair, "
+                          f"issue bound {issue_ms(pairs, pp[0], clock):.5f} "
+                          f"({issue_ms(pairs, pp[1], clock):.5f}) ms",
+                          flush=True)
+            for cfg in variant_configs(p.kind):
+                pre = (kid,) + cfg
+
+                def fn(pre=pre):
+                    return pk._call(p, tables, own, slab,
+                                    entry="sph_pair_variant", lib=lib,
+                                    pre=pre)
+
+                out = fn()
+                torch.cuda.synchronize()
+                ok, err = held_to(out, ref, call, cfg[1] == 1, scales, far)
+                check(ok, f"variant {cfg} on {label} {name}: max|diff| "
+                      f"{err:.3e}")
+                ts = [time_ms(f, AB_REPS) for f in (
+                    lambda: prev_call(p, tables, own, slab), fn, fn,
+                    lambda: prev_call(p, tables, own, slab))]
+                res[(label, name, cfg)] = ((ts[1] + ts[2]) / 2,
+                                           (ts[0] + ts[3]) / 2, mult)
+            print(f"    {len(variant_configs(p.kind))} variants held and "
+                  "timed", flush=True)
+    for kind in pk.RING_STAGES:
+        rows = []
+        for cfg in variant_configs(kind):
+            tot = {}
+            for (label, name, c), (ms, prev_ms, mult) in res.items():
+                if c != cfg or AB_INPUTS[label][name][0][0].kind != kind:
+                    continue
+                cell = "worm" if label == "worm" else f"{label} {name}"
+                t = tot.setdefault(cell, [0.0, 0.0])
+                t[0] += mult * ms
+                t[1] += mult * prev_ms
+            rows.append((tot.get("worm", [float("inf")])[0], cfg, tot))
+        rows.sort(key=lambda r: r[0])
+        print(f"variant matrix, {kind}: per-step ms (ring / previous, "
+              f"CUDA events around {AB_REPS} launches, previous/variant/"
+              f"variant/previous), by the fastw worm's total [{card}]:",
+              flush=True)
+        for _, cfg, tot in rows:
+            cells = ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}"
+                              for k, v in sorted(tot.items()))
+            print(f"  R {cfg[0]} TPR {cfg[1]} exit {cfg[2]} stages {cfg[3]} "
+                  f"rows/CTA {cfg[4]:3d}: {cells}", flush=True)
 
 
 # name -> phase(card, profile_steps), in running order; a phase that runs a
@@ -1463,7 +2049,7 @@ PHASES = {"small": small_box_phases, "box": box_phases,
           "worm": worm_phases, "small_fast": small_fast_phases,
           "tiny_worm": tiny_worm_phases, "dam": dam_break_phases,
           "fast_worm": fast_worm_phases, "exact": exact_phases,
-          "bench": bench_phase, "pack": pack_phase}
+          "bench": bench_phase, "pack": pack_phase, "ab": ab_phase}
 
 
 if __name__ == "__main__":

@@ -4,8 +4,14 @@ Each source is compiled with ``nvcc`` for ``sm_90a`` into an object, all of
 them at once (one ``nvcc`` process a source, started together), and the
 objects are linked into one shared library with a plain C interface, loaded
 with ctypes. The library is cached under ``sph_tpu_torch/_build/`` keyed by
-a hash of every source and the flags, so a changed source rebuilds. Nothing
-is built at import time.
+a hash of every source and the flags, so a changed source rebuilds; the
+compiler's report (``-Xptxas -v``: registers, spills, shared memory of each
+kernel) is kept beside it. Nothing is built at import time.
+
+``build(variants=True)`` / ``load(variants=True)`` make a second library
+from the same sources with ``-DSPH_PAIR_VARIANTS``: it adds the ring
+driver's variant matrix (``sph_pair_variant``), which only
+``chip_smoke.py --variants`` calls.
 """
 from __future__ import annotations
 
@@ -24,8 +30,11 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 KINDS = ("density", "rho_star", "viscsurf", "paccel", "boundary", "spring",
          "membrane")
+# the first driver's PAccel and RhoStar, for chip_smoke.py's comparison only
+PREV = ("rho_star_prev", "paccel_prev")
+VARIANT_FLAGS = ["-DSPH_PAIR_VARIANTS"]
 
-_lib = None
+_libs = {}
 
 
 def _nvcc() -> str:
@@ -36,11 +45,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path() -> Path:
-    key = hashlib.sha256(" ".join(FLAGS).encode())
+def _flags(variants: bool) -> list[str]:
+    return FLAGS + VARIANT_FLAGS if variants else FLAGS
+
+
+def library_path(variants: bool = False) -> Path:
+    key = hashlib.sha256(" ".join(_flags(variants)).encode())
     for src in SRCS:
         key.update(src.name.encode() + src.read_bytes())
-    return BUILD_DIR / f"libsph_kernels_{key.hexdigest()[:16]}.so"
+    name = "libsph_variants" if variants else "libsph_kernels"
+    return BUILD_DIR / f"{name}_{key.hexdigest()[:16]}.so"
 
 
 def _run(cmd):
@@ -51,17 +65,20 @@ def _run(cmd):
     return res.stdout + res.stderr
 
 
-def build() -> tuple[Path, str]:
+def build(variants: bool = False) -> tuple[Path, str]:
     """Compile the library if it is not cached; returns (path, compiler
-    output — ptxas register/shared-memory report — or "" when cached)."""
-    so = library_path()
+    output: the ptxas register/shared-memory report, kept beside a cached
+    library)."""
+    so = library_path(variants)
+    log_path = so.with_suffix(".log")
     if so.exists():
-        return so, ""
+        return so, log_path.read_text() if log_path.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    flags = _flags(variants)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, src.stem + ".o") for src in SRCS]
-        procs = [subprocess.Popen([nvcc, *FLAGS, "-c", "-o", obj, str(src)],
+        procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", obj, str(src)],
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for src, obj in zip(SRCS, objs)]
@@ -80,29 +97,34 @@ def build() -> tuple[Path, str]:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
         lib = os.path.join(tmp, "lib.so")
         logs.append(_run([nvcc, *ARCH, "-shared", "-o", lib, *objs]))
+        log = "".join(logs)
+        log_path.write_text(log)
         os.replace(lib, so)
-    return so, "".join(logs)
+    return so, log
 
 
-def load() -> ctypes.CDLL:
+def load(variants: bool = False) -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
-    global _lib
-    if _lib is None:
-        so, _ = build()
+    if variants not in _libs:
+        so, _ = build(variants)
         lib = ctypes.CDLL(str(so))
         p, i64, i32, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_float)
-        for kind in KINDS:
+        pair_args = [p, i64, p, i64, p, p, p, p, p, p, i32, p, i32, i32, i32,
+                     f, f, f, f, i32, p]
+        for kind in KINDS + PREV:
             fn = getattr(lib, "sph_pair_" + kind)
-            fn.argtypes = [p, i64, p, i64, p, p, p, p, p, p, i32, p, i32,
-                           i32, i32, f, f, f, f, i32, p]
+            fn.argtypes = pair_args
             fn.restype = i32
+        if variants:
+            lib.sph_pair_variant.argtypes = [i32] * 6 + pair_args
+            lib.sph_pair_variant.restype = i32
         lib.sph_pack_rows.argtypes = [p, i32, i64, p, p]
         lib.sph_pack_rows.restype = i32
         lib.sph_cuda_error_string.argtypes = [i32]
         lib.sph_cuda_error_string.restype = ctypes.c_void_p
-        _lib = lib
-    return _lib
+        _libs[variants] = lib
+    return _libs[variants]
 
 
 def error_string(err: int) -> str:

@@ -15,7 +15,12 @@
 // The plain PyTorch versions in sph_tpu_torch/ops/pair_kernels.py compute
 // the same sums and are what the kernels are checked against.
 //
-// Design. One CTA per own block, one thread per own row (blockDim = block).
+// Two drivers. pair_pass<P, Gated> (the first design) runs Density, ViscSurf,
+// Boundary, Spring and Membrane; pair_ring<P, R, TPR, Exit, Gated> runs
+// RhoStar and PAccel. The functors below are shared by both.
+//
+// pair_pass: one CTA per own block, one thread per own row (blockDim =
+// block).
 // A thread reads its own fields from the column-major pack at
 // ob + b*block + tid (coalesced: the packs are SoA). The block's tiles come
 // straight from the 6-tuple chunk tables (tile s -> chunk
@@ -51,9 +56,49 @@
 // the id compares. Membrane tests the distance first (10 flops a pair) and
 // runs the 7-triangle side test (~170 flops) only within r0 of the column,
 // where the weight is nonzero: the sums are unchanged, every skipped term
-// is w = 0. The loads of a tile are not overlapped with the compute of the
-// previous one (no cp.async/TMA double buffering), and no per-warp tile skip
-// is applied to the fastw passes; both are later work.
+// is w = 0. In this driver the loads of a tile are not overlapped with the
+// compute of the previous one and every field is read as a scalar.
+//
+// pair_ring, for the two kernels that take most of a step (PAccel 6 and
+// RhoStar 12 launches a fastw worm step). What held them back in
+// pair_pass: (1) on the worm's launch shapes (510 and ~208 blocks of 256
+// rows, 3-4 tiles each) one CTA a block leaves the card in one partial
+// wave set by its heaviest blocks; (2) one scalar LDS a field a pair (5
+// against ~25 FP32 instructions in PAccel, 3 against ~10 in RhoStar) takes
+// issue slots from the FP32 pipe that bounds them; (3) tiles staged by
+// plain loads and two barriers, not overlapped with compute; (4) PAccel
+// ran its force body for every candidate pair, ~97 % of them beyond h. The
+// design:
+//  * a ring of `stages` tiles in dynamic shared memory, each filled by one
+//    thread with one 1-D bulk copy (cp.async.bulk, the TMA) a slab row and
+//    completed on an mbarrier (arrive.expect_tx), so tile s+1.. land while
+//    tile s is computed; one __syncthreads a tile frees its stage for the
+//    refill. The slab must be 16-byte aligned with a width and ccol that
+//    are multiples of 4 (launch_ring refuses others; tile offsets are
+//    multiples of ALIGN = 128 by construction of the tables);
+//  * each field is read as a float4 over 4 consecutive columns (a warp
+//    broadcast), and a thread may hold R own rows, so one LDS.128 feeds
+//    4 R pairs: NF / (4 R) shared loads a pair (PAccel NF = 5, RhoStar 3);
+//  * a row may be split over TPR threads (part q takes the row's 4-column
+//    groups q, q + TPR, ...) whose partial sums are added at the end in a
+//    fixed order (shuffles: pairs, then pairs of pairs), so more warps are
+//    in flight than there are rows: the worm has too few rows to fill the
+//    card with one thread a row (~31 warps an SM on its largest launch);
+//  * a CTA takes rows_cta rows of a block, not the whole block (block /
+//    rows_cta CTAs a block, each streaming the block's tiles), so the
+//    worm's launches give several CTAs an SM and the load evens out;
+//  * PAccel's early exit (Exit) skips the force body where tt = 0 and
+//    cm <= 0 as computed, where every term is an exact zero, so the sums
+//    are unchanged; the distance test still runs for every pair.
+// Each row meets its tiles in table order and each thread its columns in
+// ascending order, adding the functor's f32 expressions as written. With
+// TPR 1 a row's sums are bitwise those of pair_pass; with TPR > 1 they
+// are the same on every run but differ from pair_pass's by the rounding of
+// the split (chip_smoke.py holds them to the kernel tolerance). Stages, R,
+// TPR, rows_cta and Exit were chosen by the variant matrix (chip_smoke.py
+// --variants) on the card: R 1-2, TPR 4 and 64 rows a CTA won on the
+// worm's launches, R 4 spilled and lost; the shipped values are at the
+// end of the namespace below.
 //
 // The subgroup gate (Gated = true; Density, ViscSurf, PAccel). A block's
 // window is the union of its rows' reach: a 256-row block spans several
@@ -61,15 +106,16 @@
 // rows g*sub .. (g+1)*sub-1 compute a tile only when its columns
 // [off, off + ccol) overlap one of the group's three dz-band windows
 // [glo, ghi) (tables at (3b + dz) * (block/sub) + g). Each thread loads its
-// group's six window bounds into registers once; per tile the test is six
-// integer compares. What it saves is the pair arithmetic that bounds these
-// passes: on the worm the JAX records count 1,617 -> 819 computed columns a
-// particle at sub 32, ccol 128 (sph_tpu/core/fast.py:55-60). At sub 32 a
-// group is one warp and the skip is warp-uniform (no divergence); at sub 8
-// and 16 lanes of a warp idle while others compute. Every thread still
-// stages the tile and meets both barriers. A skipped term is an exact zero
-// at sort time (the windows are the maskless windows of the group), and the
-// tiles and columns keep their order, so a row's sum is the ungated one.
+// group's six window bounds into registers once (pair_ring: six a row);
+// per tile the test is six integer compares. What it saves is the pair
+// arithmetic that bounds these passes: on the worm the JAX records count
+// 1,617 -> 819 computed columns a particle at sub 32, ccol 128
+// (sph_tpu/core/fast.py:55-60). At sub 32 a group is one warp and the skip
+// is warp-uniform (no divergence); at sub 8 and 16 lanes of a warp idle
+// while others compute. Every thread still stages the tile and meets the
+// barriers. A skipped term is an exact zero at sort time (the windows are
+// the maskless windows of the group), and the tiles and columns keep their
+// order, so a row's sum is the ungated one.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (no --use_fast_math: sqrtf, rsqrtf and division keep
@@ -78,6 +124,25 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+// A column of a staged tile as the functors of the ring driver read it:
+// t(f) is field f. TileCol reads shared memory (field f at t[f * ccol + j],
+// pair_pass's reads); RegCol<C> reads component C of the float4 that
+// the ring driver loaded for field f (columns j .. j + 3), so both give a
+// functor the same floats.
+struct TileCol {
+  const float* t;
+  int ccol, j;
+  __device__ float operator()(int f) const { return t[f * ccol + j]; }
+};
+
+template <int C>
+struct RegCol {
+  const float4* v;
+  __device__ float operator()(int f) const {
+    return C == 0 ? v[f].x : C == 1 ? v[f].y : C == 2 ? v[f].z : v[f].w;
+  }
+};
 
 struct Density {
   // slab rows: x, y, z (the main pack, or the predicted positions)
@@ -107,7 +172,8 @@ struct Density {
 
 struct RhoStar {
   // slab rows: predicted x, y, z
-  __host__ __device__ constexpr int slab_rows() const { return 3; }
+  static constexpr int kRows = 3;
+  __host__ __device__ constexpr int slab_rows() const { return kRows; }
   struct Own { float x, y, z; };
   struct Acc { float s; };
   float h2;
@@ -115,13 +181,18 @@ struct RhoStar {
   __device__ Own load(const float* own, long long w, long long i) const {
     return {own[i], own[w + i], own[2 * w + i]};
   }
-  __device__ void pair(const Own& o, const float* t, int ccol, int j,
-                       Acc& a) const {
-    const float dx = o.x - t[j];
-    const float dy = o.y - t[ccol + j];
-    const float dz = o.z - t[2 * ccol + j];
+  // t(f): field f of the column (see TileCol, RegCol)
+  template <bool Exit, class T>
+  __device__ void pair_at(const Own& o, const T& t, Acc& a) const {
+    const float dx = o.x - t(0);
+    const float dy = o.y - t(1);
+    const float dz = o.z - t(2);
     const float q = fmaxf(h2 - (dx * dx + dy * dy + dz * dz), 0.0f);
     a.s += q * q * q;
+  }
+  __device__ void pair(const Own& o, const float* t, int ccol, int j,
+                       Acc& a) const {
+    pair_at<false>(o, TileCol{t, ccol, j}, a);
   }
   __device__ void store(float* out, long long n, long long i,
                         const Acc& a) const {
@@ -169,7 +240,8 @@ struct ViscSurf {
 
 struct PAccel {
   // slab rows: x, y, z, 1/rho*, p
-  __host__ __device__ constexpr int slab_rows() const { return 5; }
+  static constexpr int kRows = 5;
+  __host__ __device__ constexpr int slab_rows() const { return kRows; }
   struct Own { float x, y, z, p; };
   struct Acc { float x, y, z; };
   float h, h4, rho0_delta, out_c;
@@ -177,24 +249,31 @@ struct PAccel {
   __device__ Own load(const float* own, long long w, long long i) const {
     return {own[i], own[w + i], own[2 * w + i], own[4 * w + i]};
   }
-  __device__ void pair(const Own& o, const float* t, int ccol, int j,
-                       Acc& a) const {
-    const float dx = o.x - t[j];
-    const float dy = o.y - t[ccol + j];
-    const float dz = o.z - t[2 * ccol + j];
+  // Exit: skip the force body where every term is an exact zero (r >= h:
+  // tt = 0 and the close branch is off), tested on r as computed
+  template <bool Exit, class T>
+  __device__ void pair_at(const Own& o, const T& t, Acc& a) const {
+    const float dx = o.x - t(0);
+    const float dy = o.y - t(1);
+    const float dz = o.z - t(2);
     const float r2 = dx * dx + dy * dy + dz * dz;
     if (!(r2 > 0.0f)) return;  // self and coincident pairs
     const float inv_r = rsqrtf(fmaxf(r2, 1e-30f));
     const float r = r2 * inv_r;
     const float tt = fmaxf(h - r, 0.0f);
     const float cm = h4 - r;
+    if (Exit && tt == 0.0f && !(cm > 0.0f)) return;
     const float term = (cm > 0.0f ? cm * cm * rho0_delta
-                                  : tt * tt * (o.p + t[4 * ccol + j]))
-                       * t[3 * ccol + j];
+                                  : tt * tt * (o.p + t(4)))
+                       * t(3);
     const float w = term * inv_r;
     a.x += w * dx;
     a.y += w * dy;
     a.z += w * dz;
+  }
+  __device__ void pair(const Own& o, const float* t, int ccol, int j,
+                       Acc& a) const {
+    pair_at<false>(o, TileCol{t, ccol, j}, a);
   }
   __device__ void store(float* out, long long n, long long i,
                         const Acc& a) const {
@@ -419,6 +498,268 @@ int launch(const P& p, const float* own, long long own_w, const float* slab,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The ring driver (RhoStar, PAccel; see the header comment)
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxStages = 4;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// one arrival that also sets the bytes the phase waits for
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  for (long long spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (spin > (1ll << 24)) __trap();  // a tile that never lands: fail
+  }
+}
+
+// 1-D bulk copy (TMA) global -> shared, completion counted on ``bar``
+__device__ __forceinline__ void bulk_load(unsigned dst, const float* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// first slab column and column count of tile s of block b (pair_pass's
+// arithmetic)
+__device__ __forceinline__ void tile_at(const int* aln, const int* s0, int b,
+                                        int s1, int s2, int s, int ccol,
+                                        long long slab_w, long long& off,
+                                        int& ncol) {
+  const int c = 3 * b + (s >= s1) + (s >= s2);
+  off = (long long)aln[c] + (long long)(s - s0[c]) * ccol;
+  long long avail = slab_w - off;
+  if (off < 0) avail = 0;
+  ncol = (int)(avail < ccol ? (avail > 0 ? avail : 0) : ccol);
+}
+
+// Tile s into ring stage s % stages: one arrival with its byte count, then
+// one bulk copy per slab row. Called by one thread.
+template <int NF>
+__device__ __forceinline__ void fetch_tile(const float* slab, long long slab_w,
+                                           const int* aln, const int* s0,
+                                           int b, int s1, int s2, int s,
+                                           int ccol, int stages,
+                                           unsigned ring0, unsigned bar0) {
+  long long off;
+  int ncol;
+  tile_at(aln, s0, b, s1, s2, s, ccol, slab_w, off, ncol);
+  const int st = s % stages;
+  const unsigned bar = bar0 + 8u * st;
+  mbar_expect(bar, 4u * NF * ncol);
+  if (ncol > 0) {
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      bulk_load(ring0 + 4u * (unsigned)((st * NF + f) * ccol),
+                slab + (long long)f * slab_w + off, 4u * ncol, bar);
+  }
+}
+
+// One column C of the four a float4 load holds, for each of a thread's R
+// rows (in the gated form only the rows whose group takes the tile).
+template <int C, bool Exit, bool Gated, int R, class P>
+__device__ __forceinline__ void ring_column(const P& p,
+                                            const typename P::Own* o,
+                                            const float4* v,
+                                            typename P::Acc* acc,
+                                            const bool* on) {
+  const RegCol<C> col{v};
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    if (!Gated || on[k]) p.template pair_at<Exit>(o[k], col, acc[k]);
+}
+
+// R: own rows a thread; TPR: threads a row (part q of a row's TPR threads
+// takes its 4-column groups q, q + TPR, ...; the partial sums are added at
+// the end in a fixed order); Exit: the functor's early exit; Gated: the
+// subgroup gate. A CTA takes rows_cta = R * blockDim.x / TPR consecutive
+// rows of one own block (block / rows_cta CTAs a block); the threads
+// u * TPR .. u * TPR + TPR - 1 share rows u, u + span, ... (span =
+// blockDim.x / TPR), so each warp covers 32 / TPR consecutive rows.
+template <class P, int R, int TPR, bool Exit, bool Gated>
+__global__ void __launch_bounds__(512)
+pair_ring(P p, const float* __restrict__ own, long long own_w,
+          const float* __restrict__ slab, long long slab_w,
+          const int* __restrict__ aln, const int* __restrict__ s0,
+          const int* __restrict__ cnt, const int* __restrict__ ob,
+          const int* __restrict__ glo, const int* __restrict__ ghi, int sub,
+          float* __restrict__ out, long long n_pad, int block, int ccol,
+          int stages) {
+  constexpr int NF = P::kRows;
+  extern __shared__ __align__(16) float ring[];  // [stages][NF][ccol]
+  __shared__ __align__(8) unsigned long long full[kMaxStages];
+  const int span = blockDim.x / TPR;
+  const int rows_cta = span * R;
+  const int splits = block / rows_cta;
+  const int b = blockIdx.x / splits;
+  const int r_first = (blockIdx.x - b * splits) * rows_cta;
+  const int u = threadIdx.x / TPR;
+  const int part = threadIdx.x - u * TPR;
+
+  typename P::Own o[R];
+  typename P::Acc acc[R];
+  bool live[R];
+  int wlo[Gated ? R : 1][3], whi[Gated ? R : 1][3];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const long long i = (long long)b * block + r_first + k * span + u;
+    const long long row = (long long)ob[0] + i;
+    live[k] = row >= 0 && row < own_w;
+    o[k] = p.load(own, own_w, live[k] ? row : 0);
+    acc[k] = typename P::Acc{};
+    if (Gated) {
+      const int ng = block / sub;
+      const int g = (r_first + k * span + u) / sub;
+      for (int d = 0; d < 3; ++d) {
+        wlo[k][d] = glo[(3 * b + d) * ng + g];
+        whi[k][d] = ghi[(3 * b + d) * ng + g];
+      }
+    }
+  }
+
+  const int n_s = cnt[b];
+  const int s1 = s0[3 * b + 1];
+  const int s2 = s0[3 * b + 2];
+  const unsigned ring0 = smem_addr(ring);
+  const unsigned bar0 = smem_addr(full);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) mbar_init(bar0 + 8u * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();  // the barriers are initialised
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages && s < n_s; ++s)
+      fetch_tile<NF>(slab, slab_w, aln, s0, b, s1, s2, s, ccol, stages,
+                     ring0, bar0);
+  }
+
+  for (int s = 0; s < n_s; ++s) {
+    long long off;
+    int ncol;
+    tile_at(aln, s0, b, s1, s2, s, ccol, slab_w, off, ncol);
+    bool on[R];
+    bool any = !Gated;
+    if (Gated) {
+      const long long end = off + ccol;
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        on[k] = live[k] && ((whi[k][0] > off && wlo[k][0] < end) ||
+                            (whi[k][1] > off && wlo[k][1] < end) ||
+                            (whi[k][2] > off && wlo[k][2] < end));
+        any = any || on[k];
+      }
+    }
+    const int st = s % stages;
+    mbar_wait(bar0 + 8u * st, (unsigned)(s / stages) & 1u);
+    if (any) {
+      const float* t = ring + st * NF * ccol;
+#pragma unroll 2
+      for (int j = 4 * part; j < ncol; j += 4 * TPR) {
+        float4 v[NF];
+#pragma unroll
+        for (int f = 0; f < NF; ++f)
+          v[f] = *reinterpret_cast<const float4*>(t + f * ccol + j);
+        ring_column<0, Exit, Gated, R>(p, o, v, acc, on);
+        ring_column<1, Exit, Gated, R>(p, o, v, acc, on);
+        ring_column<2, Exit, Gated, R>(p, o, v, acc, on);
+        ring_column<3, Exit, Gated, R>(p, o, v, acc, on);
+      }
+    }
+    if (s + stages < n_s) {
+      __syncthreads();  // every thread is done with stage st
+      if (threadIdx.x == 0) {
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        fetch_tile<NF>(slab, slab_w, aln, s0, b, s1, s2, s + stages, ccol,
+                       stages, ring0, bar0);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    if constexpr (TPR > 1) {  // pairs of partial sums, then pairs of
+                              // pairs: the same sum on every part
+      float* a = reinterpret_cast<float*>(&acc[k]);
+#pragma unroll
+      for (int m = 1; m < TPR; m <<= 1)
+#pragma unroll
+        for (int e = 0; e < (int)(sizeof(acc[k]) / sizeof(float)); ++e)
+          a[e] += __shfl_xor_sync(0xffffffffu, a[e], m);
+    }
+    if (part == 0) {
+      if (!live[k]) acc[k] = typename P::Acc{};
+      p.store(out, n_pad, (long long)b * block + r_first + k * span + u,
+              acc[k]);
+    }
+  }
+}
+
+template <int R, int TPR, bool Exit, bool Gated, class P>
+int launch_ring(const P& p, const float* own, long long own_w,
+                const float* slab, long long slab_w, const int* aln,
+                const int* s0, const int* cnt, const int* ob, const int* glo,
+                const int* ghi, int sub, float* out, int n_blocks, int block,
+                int ccol, int stages, int rows_cta, void* stream) {
+  static_assert(TPR == 1 || TPR == 2 || TPR == 4, "threads a row: 1, 2, 4");
+  if (n_blocks <= 0) return (int)cudaGetLastError();
+  if (Gated && (sub <= 0 || block % sub != 0 || !glo || !ghi))
+    return (int)cudaErrorInvalidValue;
+  // a block that rows_cta does not divide (block is a multiple of 32)
+  // takes CTAs of the largest power-of-two share of rows_cta that does
+  while (rows_cta > 32 && block % rows_cta != 0) rows_cta /= 2;
+  const int nthr = rows_cta / R * TPR;
+  if (stages < 1 || stages > kMaxStages || rows_cta <= 0 ||
+      block % rows_cta != 0 || rows_cta % R != 0 || nthr % 32 != 0 ||
+      nthr > 512)
+    return (int)cudaErrorInvalidConfiguration;
+  // the bulk copies move 16-byte units between 16-byte-aligned addresses
+  if (ccol % 4 != 0 || slab_w % 4 != 0 ||
+      reinterpret_cast<unsigned long long>(slab) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const size_t smem = sizeof(float) * P::kRows * (size_t)ccol * stages;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        pair_ring<P, R, TPR, Exit, Gated>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int grid = n_blocks * (block / rows_cta);
+  pair_ring<P, R, TPR, Exit, Gated>
+      <<<grid, nthr, smem, (cudaStream_t)stream>>>(
+          p, own, own_w, slab, slab_w, aln, s0, cnt, ob, glo, ghi, sub, out,
+          (long long)n_blocks * block, block, ccol, stages);
+  return (int)cudaGetLastError();
+}
+
+// The shipped configuration of the ring driver, chosen by the variant
+// matrix of chip_smoke.py --variants (ops/pair_kernels.py RING reads the
+// stage counts from here to size shared memory).
+constexpr int kRhoStages = 2, kRhoR = 2, kRhoTPR = 4, kRhoRowsCta = 64;
+constexpr int kPaccStages = 2, kPaccR = 1, kPaccTPR = 4, kPaccRowsCta = 64;
+constexpr bool kPaccExit = true;
+
 }  // namespace
 
 // glo, ghi, sub: the gate's windows and group size; null, null, 0 for the
@@ -432,6 +773,9 @@ int launch(const P& p, const float* own, long long own_w, const float* slab,
 #define SPH_PAIR_FWD                                                        \
   own, own_w, slab, slab_w, aln, s0, cnt, ob, glo, ghi, sub, out,          \
       n_blocks, block, ccol, stream
+#define SPH_RING_FWD(stages, rows_cta)                                     \
+  own, own_w, slab, slab_w, aln, s0, cnt, ob, glo, ghi, sub, out,          \
+      n_blocks, block, ccol, stages, rows_cta, stream
 #define SPH_UNGATED(P) \
   (sub != 0 ? (int)cudaErrorInvalidValue : launch<false>(P, SPH_PAIR_FWD))
 #define SPH_GATED(P) \
@@ -444,7 +788,9 @@ int sph_pair_density(SPH_PAIR_ARGS) {
 }
 
 int sph_pair_rho_star(SPH_PAIR_ARGS) {
-  return SPH_UNGATED(RhoStar{c0});
+  if (sub != 0) return (int)cudaErrorInvalidValue;
+  return launch_ring<kRhoR, kRhoTPR, false, false>(
+      RhoStar{c0}, SPH_RING_FWD(kRhoStages, kRhoRowsCta));
 }
 
 int sph_pair_viscsurf(SPH_PAIR_ARGS) {
@@ -452,6 +798,20 @@ int sph_pair_viscsurf(SPH_PAIR_ARGS) {
 }
 
 int sph_pair_paccel(SPH_PAIR_ARGS) {
+  const PAccel p{c0, c1, c2, c3};
+  return sub != 0 ? launch_ring<kPaccR, kPaccTPR, kPaccExit, true>(
+                        p, SPH_RING_FWD(kPaccStages, kPaccRowsCta))
+                  : launch_ring<kPaccR, kPaccTPR, kPaccExit, false>(
+                        p, SPH_RING_FWD(kPaccStages, kPaccRowsCta));
+}
+
+// pair_pass for the two kinds the ring driver took over, kept for
+// chip_smoke.py's in-call comparison; no wrapper or engine calls these.
+int sph_pair_rho_star_prev(SPH_PAIR_ARGS) {
+  return SPH_UNGATED(RhoStar{c0});
+}
+
+int sph_pair_paccel_prev(SPH_PAIR_ARGS) {
   return SPH_GATED((PAccel{c0, c1, c2, c3}));
 }
 
@@ -472,3 +832,47 @@ const char* sph_cuda_error_string(int err) {
 }
 
 }  // extern "C"
+
+#ifdef SPH_PAIR_VARIANTS
+// The variant matrix (chip_smoke.py --variants builds a second library with
+// -DSPH_PAIR_VARIANTS): kind 0 RhoStar, 1 PAccel (gated when sub != 0); r
+// rows a thread (1, 2, 4), tpr threads a row (1, 2, 4), ex the early exit
+// (PAccel only), stages, rows_cta rows a CTA.
+namespace {
+template <bool Exit, bool Gated, class P>
+int variant_of(const P& p, int r, int tpr, SPH_PAIR_ARGS, int stages,
+               int rows_cta) {
+  switch (r * 10 + tpr) {
+    case 11: return launch_ring<1, 1, Exit, Gated>(p, SPH_RING_FWD(stages, rows_cta));
+    case 12: return launch_ring<1, 2, Exit, Gated>(p, SPH_RING_FWD(stages, rows_cta));
+    case 21: return launch_ring<2, 1, Exit, Gated>(p, SPH_RING_FWD(stages, rows_cta));
+    case 22: return launch_ring<2, 2, Exit, Gated>(p, SPH_RING_FWD(stages, rows_cta));
+    case 41: return launch_ring<4, 1, Exit, Gated>(p, SPH_RING_FWD(stages, rows_cta));
+    case 42: return launch_ring<4, 2, Exit, Gated>(p, SPH_RING_FWD(stages, rows_cta));
+    case 14: return launch_ring<1, 4, Exit, Gated>(p, SPH_RING_FWD(stages, rows_cta));
+    case 24: return launch_ring<2, 4, Exit, Gated>(p, SPH_RING_FWD(stages, rows_cta));
+    case 44: return launch_ring<4, 4, Exit, Gated>(p, SPH_RING_FWD(stages, rows_cta));
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+}  // namespace
+
+extern "C" int sph_pair_variant(int kind, int r, int tpr, int ex, int stages,
+                                int rows_cta, SPH_PAIR_ARGS) {
+#define SPH_VAR_FWD r, tpr, own, own_w, slab, slab_w, aln, s0, cnt, ob, glo, \
+      ghi, sub, out, n_blocks, block, ccol, c0, c1, c2, c3, i0, stream,       \
+      stages, rows_cta
+  if (kind == 0) {
+    if (sub != 0 || ex) return (int)cudaErrorInvalidValue;
+    return variant_of<false, false>(RhoStar{c0}, SPH_VAR_FWD);
+  }
+  if (kind != 1) return (int)cudaErrorInvalidValue;
+  const PAccel p{c0, c1, c2, c3};
+  if (sub != 0)
+    return ex ? variant_of<true, true>(p, SPH_VAR_FWD)
+              : variant_of<false, true>(p, SPH_VAR_FWD);
+  return ex ? variant_of<true, false>(p, SPH_VAR_FWD)
+            : variant_of<false, false>(p, SPH_VAR_FWD);
+#undef SPH_VAR_FWD
+}
+#endif  // SPH_PAIR_VARIANTS
