@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke check of the PyTorch port (``sph_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--profile-steps N] [--only PHASE,...] [--variants]
+    python3 chip_smoke.py [--profile-steps N] [--only PHASE,...]
 
 Phases (any failure raises and exits nonzero, printing no result):
 
@@ -63,8 +63,10 @@ Phases (any failure raises and exits nonzero, printing no result):
    ``bench.py``: max spring strain < 0.5 over every spring, mean liquid
    rho/rho0 in [0.5, 2] from the engine's own time-t density sums, muscle
    activation equal to the wave model's at the last step and not all zero.
-   With ``--profile-steps N``, N more steps then run under torch.profiler
-   and the device-time breakdown is printed;
+   With ``--profile-steps N``, N more steps of this path run under
+   torch.profiler after the last phase, and the device-time breakdown is
+   printed (after it, later profiler sessions in the process were seen to
+   drop kernel records, so no phase measures device time after it);
 10. kernel vs plain (full worm): phase 7's check and counts on the main
    path's final state, the spring launch's shared-memory size (above
    48 KB: the opt-in branch), then all six kernels and their plain
@@ -133,12 +135,7 @@ Phases (any failure raises and exits nonzero, printing no result):
    launches) and by torch.profiler device time, beside the bound (paccel
    charged for its early exit, ``PACCEL_TEST_FLOPS``, and the all-pairs
    charge beside it); the host microseconds of one pair launch. Checks no
-   spill in the shipped ring kernels. ``--variants`` also builds the
-   variant library (``-DSPH_PAIR_VARIANTS``) and runs the matrix (rows a
-   thread, threads a row, stages, rows a CTA, early exit) on the same
-   launches, each held to the first design and timed in turns with it,
-   with each variant's hot-loop SASS instructions a pair (``cuobjdump``)
-   and issue-rate bound, ranked by the fastw worm's per-step total.
+   spill in the shipped ring kernels.
 
 Each phase prints its seconds. ``--only`` runs the named phases alone
 (small: 3-4, box: 5-6, rworm: 7, rworm_engine: 8, worm: 9-10, small_fast:
@@ -159,7 +156,6 @@ import dataclasses
 import json
 import os
 import re
-import shutil
 import subprocess
 import sys
 import time
@@ -237,7 +233,7 @@ PAIR_FLOPS = {"density": 13, "rho_star": 13, "viscsurf": 25, "paccel": 29,
               "boundary": 22}
 # paccel on the ring driver exits early beyond h: the distance and radius
 # test (17, the exit's two compares included) for every candidate pair, the
-# force body (12) for the pairs that run it (``PairPass.near_pairs``).
+# force body (12) for the pairs that run it (``near_pairs``).
 # PAIR_FLOPS["paccel"] stays the all-pairs charge, printed beside it.
 PACCEL_TEST_FLOPS, PACCEL_NEAR_FLOPS = 17, 12
 SPRING_MATCH_FLOPS = 3 + 28
@@ -427,6 +423,22 @@ def computed_pairs(p, tables, own, far):
     return (int((act.sum(2) * rows).sum()) * p.ccol, int(real.sum()))
 
 
+def near_pairs(p, tables, own, slab) -> int:
+    """paccel only: the (own row, listed column) pairs whose force body
+    runs after the ring kernel's early exit, 0 < r and (r < h or r < h/4)
+    as the kernel tests them in f32; every other pair is an exact zero of
+    the sums. The data-dependent part of its work (``pass_bound``)."""
+    h, h4 = p.consts[:2]
+    n = 0
+    for _, live, o, s, valid, _ in pk.pair_chunks(p, tables, own, slab):
+        dx, dy, dz = o[0] - s[0], o[1] - s[1], o[2] - s[2]
+        r2 = dx * dx + dy * dy + dz * dz
+        r = r2 * torch.rsqrt(torch.clamp(r2, min=1e-30))
+        body = valid & (r2 > 0.0) & ((h - r > 0.0) | (h4 - r > 0.0))
+        n += int((body.sum(-1) * live).sum())
+    return n
+
+
 def pass_bound(p, tables, own, slab, far, data_work):
     """(candidate pairs, bound ms, "operations" | "bytes") of one launch:
     pairs = ``computed_pairs``; operations = pairs x the functor's count
@@ -447,7 +459,7 @@ def pass_bound(p, tables, own, slab, far, data_work):
                + data_work["membrane"] * MEMBRANE_NEAR_FLOPS)
     elif p.kind == "paccel":
         ops = (pairs * PACCEL_TEST_FLOPS
-               + p.near_pairs(tables, own, slab) * PACCEL_NEAR_FLOPS)
+               + near_pairs(p, tables, own, slab) * PACCEL_NEAR_FLOPS)
     else:
         ops = pairs * PAIR_FLOPS[p.kind]
     t_ops = ops / PEAK_F32_FLOPS * 1e3
@@ -523,26 +535,28 @@ def time_ms(fn, reps, warm=True):
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, reps=50):
+def device_ms(fn, reps=50, tries=3):
     """Mean device milliseconds a call of the one CUDA kernel it launches
     (torch.profiler over ``reps`` calls, after one untimed call), or None
-    unless the profiler recorded exactly ``reps`` kernels: after a long
-    profiled window in the same process (``--profile-steps``) later
-    profiler windows were seen to drop kernel records and undercount."""
+    unless the profiler recorded exactly ``reps`` kernels in one of
+    ``tries`` sessions: sessions were seen to drop kernel records now and
+    then, and always after a long profiled window in the same process
+    (why ``--profile-steps`` runs last)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
-    if sum(e.count for e in kernels) != reps:
-        return None
-    return sum(e.self_device_time_total for e in kernels) / reps / 1e3
+    for _ in range(tries):
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+        if sum(e.count for e in kernels) == reps:
+            return sum(e.self_device_time_total for e in kernels) / reps / 1e3
+    return None
 
 
 def engine_run(scene, params, dev, engine, steps, cfg_kw):
@@ -720,10 +734,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-steps", type=int, default=0,
                     help="main-path steps to run under torch.profiler "
-                         "after the timed run (0: none)")
-    ap.add_argument("--variants", action="store_true",
-                    help="phase ab also builds and runs the ring driver's "
-                         "variant matrix")
+                         "after the last phase (0: none)")
     ap.add_argument("--only", default="",
                     help="comma-separated phases to run alone while "
                          f"iterating ({', '.join(PHASES)}); the run then "
@@ -731,8 +742,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     only = [s for s in args.only.split(",") if s] or list(PHASES)
     check(set(only) <= set(PHASES), f"--only {only}")
-    global VARIANTS
-    VARIANTS = args.variants
 
     # 1. device
     if not torch.cuda.is_available():
@@ -764,6 +773,8 @@ def main(argv=None) -> int:
             results[key] = phase(card, args.profile_steps)
             print(f"phase {key}: {time.perf_counter() - t0:.1f} s",
                   flush=True)
+    if PROFILE_SIM:
+        profile(PROFILE_SIM.pop(), args.profile_steps, card)
     if len(results) < len(PHASES):
         print(f"chip_smoke: only {sorted(results)} ran, no result",
               file=sys.stderr)
@@ -926,8 +937,8 @@ def worm_phases(card, profile_steps):
           f"{ovf['window_drift_h']:.4f} h (shell bound "
           f"{2 * (sim._fast_cfg.dilate - 1)} h), launches {launches} "
           f"[{card}]", flush=True)
-    if profile_steps > 0:
-        profile(sim, profile_steps, card)
+    if profile_steps > 0:       # profiled after the last phase (main)
+        PROFILE_SIM.append(sim)
 
     # 10. kernel vs plain at the main path's shapes, from its final state
     calls = record_step_inputs(params, sim.layout, sim._fast_cfg,
@@ -1513,8 +1524,8 @@ def pack_phase(card, profile_steps):
 
 
 # ---------------------------------------------------------------------------
-# the ring driver: build report, in-call A/B against the first design, the
-# variant matrix (phase 19, ``--variants``)
+# the ring driver: build report, in-call A/B against the first design
+# (phase 19)
 # ---------------------------------------------------------------------------
 
 FUNCTORS = {"density": "Density", "rho_star": "RhoStar",
@@ -1527,19 +1538,10 @@ FUNCTORS = {"density": "Density", "rho_star": "RhoStar",
 AB_INPUTS = {}
 AB_LABELS = ("worm", "box", "dam", "fast_worm")
 AB_REPS = 20
-SMS, ISSUE_PER_CLK = 132, 128  # H100 SXM: SMs; thread-instructions/clk/SM
-# the ptxas report of the shipped library (filled in main); --variants
+# the ptxas report of the library (filled in main)
 BUILD_REPORT = []
-VARIANTS = False
-
-
-def ring_consts() -> dict:
-    """The shipped ring configuration, ``k<Rho|Pacc><Name>`` constants of
-    csrc/pair_pass.cu (``RhoR`` -> 2, ``PaccExit`` -> 1, ...)."""
-    src = open(os.path.join(REPO, SOURCE)).read()
-    words = {"true": 1, "false": 0}
-    return {m[1]: words[m[2]] if m[2] in words else int(m[2])
-            for m in re.finditer(r"\bk((?:Rho|Pacc)\w+) = (\w+)", src)}
+# the main path's simulator, profiled after the last phase (--profile-steps)
+PROFILE_SIM = []
 
 
 def describe(mangled):
@@ -1550,10 +1552,11 @@ def describe(mangled):
                 "")
     ints = [int(x) for x in re.findall(r"Li(\d+)E", mangled)]
     bools = [int(x) for x in re.findall(r"Lb([01])E", mangled)]
-    if driver == "pair_ring" and len(ints) >= 2 and len(bools) >= 2:
+    if driver == "pair_ring" and len(ints) >= 4 and len(bools) >= 2:
         label = (f"pair_ring<{FUNCTORS[kind]}, R {ints[0]}, TPR {ints[1]}, "
-                 f"exit {bools[0]}, gated {bools[1]}>")
-        key = (kind, ints[0], ints[1], bools[0], bools[1])
+                 f"stages {ints[2]}, rows/CTA {ints[3]}, exit {bools[0]}, "
+                 f"gated {bools[1]}>")
+        key = (kind, bools[1])
     elif driver == "pair_pass" and bools:
         label = f"pair_pass<{FUNCTORS[kind]}, gated {bools[0]}>"
         key = (kind, bools[0])
@@ -1595,16 +1598,12 @@ def ptxas_report(log):
     return out
 
 
-def shipped_kernel(kind, gated, report=None):
-    """The ptxas entry of the kernel that kind's entry point launches."""
-    if kind in pk.RING_STAGES:
-        c = ring_consts()
-        pre = "Rho" if kind == "rho_star" else "Pacc"
-        key = (kind, c[pre + "R"], c[pre + "TPR"], c.get(pre + "Exit", 0),
-               int(gated))
-    else:
-        key = (kind, int(gated))
-    return next((r for r in report or BUILD_REPORT if r["key"] == key), None)
+def shipped_kernel(kind, gated):
+    """The ptxas entry of the kernel that kind's entry point launches (the
+    ring driver's for the kinds in ``pk.RING``)."""
+    driver = "pair_ring" if kind in pk.RING else "pair_pass"
+    return next((r for r in BUILD_REPORT if r["driver"] == driver
+                 and r["key"] == (kind, int(gated))), None)
 
 
 def print_build_report(report, label):
@@ -1616,111 +1615,13 @@ def print_build_report(report, label):
               f"{r['spill_ld']} B spill stores/loads", flush=True)
 
 
-FP32_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET")
-
-
-def sass_loops(so):
-    """{mangled name: the hot loop's static instruction counts} from
-    ``cuobjdump -sass``, or None where the toolkit has no cuobjdump. The hot
-    loop is the innermost backward branch's span holding the most FP32
-    instructions; ``skippable`` counts the instructions that forward
-    branches inside it can jump over (an early exit's body)."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.isfile(tool):
-        return None
-    res = subprocess.run([tool, "-sass", str(so)], capture_output=True,
-                         text=True, timeout=600)
-    if res.returncode != 0:
-        return None
-    funcs, cur = {}, None
-    for line in res.stdout.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            cur = funcs.setdefault(m[1], [])
-            continue
-        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
-        if m and cur is not None:
-            cur.append((int(m[1], 16), m[2].strip()))
-    return {name: hot_loop(ins) for name, ins in funcs.items()}
-
-
-def hot_loop(ins):
-    idx = {a: i for i, (a, _) in enumerate(ins)}
-    back, fwd = [], []
-    for i, (a, text) in enumerate(ins):
-        m = re.search(r"\bBRA\b\S*\s+[^0-9]*0x([0-9a-f]+)", text)
-        if not m or int(m[1], 16) not in idx:
-            continue
-        j = idx[int(m[1], 16)]
-        (back if j <= i else fwd).append((min(i, j), max(i, j)))
-    inner = [(j, i) for j, i in back
-             if not any(j <= j2 and i2 <= i and (j2, i2) != (j, i)
-                        for j2, i2 in back)]
-
-    def op(text):
-        return text.split()[1 if text.startswith("@") else 0]
-
-    def n_fp(span):
-        return sum(op(t).split(".")[0] in FP32_OPS
-                   for _, t in ins[span[0]:span[1] + 1])
-
-    if not inner:
-        return None
-    j, i = max(inner, key=n_fp)
-    ops = [op(t) for _, t in ins[j:i + 1]]
-    skip = set()
-    for a, b in fwd:           # a forward branch at a jumps to b
-        if j <= a < b <= i:
-            skip.update(range(a + 1, b))
-    width = {"64": 2, "128": 4}
-    return dict(
-        n=len(ops), skippable=len(skip),
-        fp32=sum(o.split(".")[0] in FP32_OPS for o in ops),
-        mufu=sum(o.startswith("MUFU") for o in ops),
-        lds=sum(o.startswith("LDS") for o in ops),
-        # floats the loop's shared loads bring in
-        lds_floats=sum(width.get(o.split(".")[-1], 1)
-                       for o in ops if o.startswith("LDS")))
-
-
-def per_pair(loop, kind, rows):
-    """Static SASS instructions a pair of the hot loop: (all, on the
-    path that skips the skippable instructions, FP32, shared loads), from
-    the floats its shared loads bring in (each float feeds ``rows`` rows,
-    one pair each)."""
-    if not loop or not loop["lds_floats"]:
-        return None
-    pairs = loop["lds_floats"] / _SPECS_SLAB[kind] * rows
-    return tuple(x / pairs for x in (loop["n"], loop["n"] - loop["skippable"],
-                                     loop["fp32"], loop["lds"]))
-
-
-_SPECS_SLAB = {"rho_star": pk.ITER_COLS, "paccel": pk.PACC_COLS}
-
-
-def max_sm_clock_hz():
-    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, timeout=60)
-    try:
-        return float(res.stdout.split()[0]) * 1e6
-    except (IndexError, ValueError):
-        return None
-
-
-def issue_ms(pairs, instr, clock):
-    """The issue-rate bound: pairs x instructions a pair over the card's
-    thread-instruction issue rate (4 warp-instructions a clock an SM)."""
-    return pairs * instr / (SMS * ISSUE_PER_CLK * clock) * 1e3
-
-
 def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def stash_ab(label, calls, mults):
     AB_INPUTS[label] = {name: (c, mults[name]) for name, c in calls.items()
-                        if c[0].kind in pk.RING_STAGES}
+                        if c[0].kind in pk.RING}
 
 
 def fast_ab_inputs(params, sim, state, label):
@@ -1827,12 +1728,11 @@ def host_launch_us(call, reps=200):
 def ab_phase(card, profile_steps):
     # 19. the ring kernels against the first design (pair_pass) on every
     # recorded launch: bitwise, then timed in turns
-    consts = ring_consts()
     far = box_edge(SimParams())
     for label in AB_LABELS:
         if label not in AB_INPUTS:
             ab_record(label)
-    for r in (shipped_kernel(k, g) for k in pk.RING_STAGES for g in (0, 1)):
+    for r in (shipped_kernel(k, g) for k in pk.RING for g in (0, 1)):
         if r is not None:
             check(r["spill_st"] == 0 and r["spill_ld"] == 0,
                   f"{r['label']} spills: {r}")
@@ -1840,8 +1740,8 @@ def ab_phase(card, profile_steps):
     for label in AB_LABELS:
         for name, (call, mult) in sorted(AB_INPUTS[label].items()):
             p, tables, own, slab = call[:4]
-            pre = "Rho" if p.kind == "rho_star" else "Pacc"
-            bitwise = consts[pre + "TPR"] == 1
+            ring = pk.RING[p.kind]
+            bitwise = ring.tpr == 1
             new = pk._call(p, tables, own, slab)
             old = prev_call(p, tables, own, slab)
             torch.cuda.synchronize()
@@ -1862,7 +1762,7 @@ def ab_phase(card, profile_steps):
             pairs, bound_ms, by = pass_bound(p, tables, own, slab, far, None)
             all_ms = pairs * PAIR_FLOPS[p.kind] / PEAK_F32_FLOPS * 1e3
             mean_t, max_t, act = tile_stats(p, tables)
-            ctas = p.n_blocks * p.block // consts[pre + "RowsCta"]
+            ctas = p.n_blocks * p.block // ring.rows_cta
             print(f"  ab {label:9s} {name:11s} {p.launch_key:10s} blocks "
                   f"{p.n_blocks} ({act} with tiles: {mean_t:.2f} mean, "
                   f"{max_t} max) ccol {p.ccol}: "
@@ -1896,7 +1796,7 @@ def ab_phase(card, profile_steps):
               f"bound {a['bound']:.5f} ms = {a['bound'] / a['new']:.3f} of "
               f"the ring's time (all-pairs charge {a['all_pairs']:.5f}) "
               f"[{card}]", flush=True)
-    for kind in pk.RING_STAGES:
+    for kind in pk.RING:
         a = totals[("worm", kind)]
         print(f"  ab worm {kind}: the ring kernel "
               f"{'is' if a['new'] < a['prev'] else 'is NOT'} below the "
@@ -1911,8 +1811,8 @@ def ab_phase(card, profile_steps):
     def extra(label, group, kind, gated):
         a = totals[(label, group)]
         cur = shipped_kernel(kind, gated)
-        prev = next((r for r in BUILD_REPORT
-                     if r["key"] == (kind, int(gated))), None)
+        prev = next((r for r in BUILD_REPORT if r["driver"] == "pair_pass"
+                     and r["key"] == (kind, int(gated))), None)
         return dict(prev_ms=a["prev"], ab_ms=a["new"],
                     prev_device_ms=a["prev_dev"], ab_device_ms=a["new_dev"],
                     ab_scope=f"in-call A/B, {label}, CUDA events around "
@@ -1921,125 +1821,10 @@ def ab_phase(card, profile_steps):
                     registers=cur and cur["regs"],
                     prev_registers=prev and prev["regs"],
                     bound_ms_all_pairs=a["all_pairs"])
-    if VARIANTS:
-        variant_matrix(card, far)
     return dict(kernels={}, launches={}, extra={
         "paccel": extra("worm", "paccel", "paccel", False),
         "rho_star": extra("worm", "rho_star", "rho_star", False),
         "paccel_sub": extra("fast_worm", "paccel_s32", "paccel", True)})
-
-
-def variant_configs(kind):
-    """(R, TPR, exit, stages, rows a CTA) of the matrix."""
-    out = []
-    for r in (1, 2, 4):
-        for tpr in (1, 2, 4):
-            for rows in (64, 128, 256):
-                nthr = rows // r * tpr
-                if nthr % 32 or nthr > 512:
-                    continue
-                for stages in (2, 3):
-                    for ex in ((0, 1) if kind == "paccel" else (0,)):
-                        out.append((r, tpr, ex, stages, rows))
-    return out
-
-
-def variant_matrix(card, far):
-    """Every ring variant on the recorded launches of the fastw worm, the
-    dam-break and the fast worm: held to the first design, timed in turns
-    with it, ranked by the fastw worm's per-step total."""
-    t0 = time.perf_counter()
-    so, log = _build.build(variants=True)
-    lib = _build.load(variants=True)
-    print(f"variants: built in {time.perf_counter() - t0:.1f} s -> "
-          f"{so.name}", flush=True)
-    report = [r for r in ptxas_report(log) if r["driver"] != "pack_rows"]
-    print_build_report(report, "variants")
-    sass = sass_loops(so)
-    clock = max_sm_clock_hz()
-    print(f"  SASS: {'cuobjdump' if sass is not None else 'not available'}"
-          f"; max SM clock {clock} Hz", flush=True)
-    loops = {}
-    for r in report:
-        loop = (sass or {}).get(r["mangled"])
-        rows = r["key"][1] if r["driver"] == "pair_ring" else 1
-        pp = per_pair(loop, r["kind"], rows) if r["kind"] in _SPECS_SLAB \
-            else None
-        loops[r["key"]] = pp
-        if pp:
-            print(f"    {r['label']:58s} hot loop {loop['n']} instructions "
-                  f"({loop['skippable']} skippable): {pp[0]:.2f} a pair "
-                  f"({pp[1]:.2f} on the exit path), FP32 {pp[2]:.2f}, "
-                  f"shared loads {pp[3]:.3f}", flush=True)
-    res, scales = {}, {}
-    for label in ("worm", "dam", "fast_worm"):
-        for name, (call, mult) in sorted(AB_INPUTS[label].items()):
-            p, tables, own, slab = call[:4]
-            kid = 0 if p.kind == "rho_star" else 1
-            ref = prev_call(p, tables, own, slab)
-            pairs = computed_pairs(p, tables, own, far)[0]
-            _, flop_ms, _ = pass_bound(p, tables, own, slab, far, None)
-            mean_t, max_t, act = tile_stats(p, tables)
-            print(f"  shape {label} {name} ({p.launch_key}): {p.n_blocks} "
-                  f"blocks, tiles a block {mean_t:.2f} mean / {max_t} max "
-                  f"over {act}, {pairs:.4g} candidate pairs, FLOP bound "
-                  f"{flop_ms:.5f} ms", flush=True)
-            gated = int(p.gated)
-            prev_pp = loops.get((p.kind, gated))
-            if prev_pp and clock:
-                print(f"    previous: {prev_pp[0]:.2f} instructions a pair,"
-                      f" issue bound {issue_ms(pairs, prev_pp[0], clock):.5f}"
-                      " ms", flush=True)
-            for key, pp in sorted(loops.items()):
-                if (pp and clock and len(key) == 5 and key[0] == p.kind
-                        and key[4] == gated):
-                    print(f"    R {key[1]} TPR {key[2]} exit {key[3]}: "
-                          f"{pp[0]:.2f} ({pp[1]:.2f}) instructions a pair, "
-                          f"issue bound {issue_ms(pairs, pp[0], clock):.5f} "
-                          f"({issue_ms(pairs, pp[1], clock):.5f}) ms",
-                          flush=True)
-            for cfg in variant_configs(p.kind):
-                pre = (kid,) + cfg
-
-                def fn(pre=pre):
-                    return pk._call(p, tables, own, slab,
-                                    entry="sph_pair_variant", lib=lib,
-                                    pre=pre)
-
-                out = fn()
-                torch.cuda.synchronize()
-                ok, err = held_to(out, ref, call, cfg[1] == 1, scales, far)
-                check(ok, f"variant {cfg} on {label} {name}: max|diff| "
-                      f"{err:.3e}")
-                ts = [time_ms(f, AB_REPS) for f in (
-                    lambda: prev_call(p, tables, own, slab), fn, fn,
-                    lambda: prev_call(p, tables, own, slab))]
-                res[(label, name, cfg)] = ((ts[1] + ts[2]) / 2,
-                                           (ts[0] + ts[3]) / 2, mult)
-            print(f"    {len(variant_configs(p.kind))} variants held and "
-                  "timed", flush=True)
-    for kind in pk.RING_STAGES:
-        rows = []
-        for cfg in variant_configs(kind):
-            tot = {}
-            for (label, name, c), (ms, prev_ms, mult) in res.items():
-                if c != cfg or AB_INPUTS[label][name][0][0].kind != kind:
-                    continue
-                cell = "worm" if label == "worm" else f"{label} {name}"
-                t = tot.setdefault(cell, [0.0, 0.0])
-                t[0] += mult * ms
-                t[1] += mult * prev_ms
-            rows.append((tot.get("worm", [float("inf")])[0], cfg, tot))
-        rows.sort(key=lambda r: r[0])
-        print(f"variant matrix, {kind}: per-step ms (ring / previous, "
-              f"CUDA events around {AB_REPS} launches, previous/variant/"
-              f"variant/previous), by the fastw worm's total [{card}]:",
-              flush=True)
-        for _, cfg, tot in rows:
-            cells = ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}"
-                              for k, v in sorted(tot.items()))
-            print(f"  R {cfg[0]} TPR {cfg[1]} exit {cfg[2]} stages {cfg[3]} "
-                  f"rows/CTA {cfg[4]:3d}: {cells}", flush=True)
 
 
 # name -> phase(card, profile_steps), in running order; a phase that runs a

@@ -6,16 +6,14 @@ objects are linked into one shared library with a plain C interface, loaded
 with ctypes. The library is cached under ``sph_tpu_torch/_build/`` keyed by
 a hash of every source and the flags, so a changed source rebuilds; the
 compiler's report (``-Xptxas -v``: registers, spills, shared memory of each
-kernel) is kept beside it. Nothing is built at import time.
-
-``build(variants=True)`` / ``load(variants=True)`` make a second library
-from the same sources with ``-DSPH_PAIR_VARIANTS``: it adds the ring
-driver's variant matrix (``sph_pair_variant``), which only
-``chip_smoke.py --variants`` calls.
+kernel) is kept beside it. The ring driver's configuration
+(``pair_kernels.RING``) is compiled in as ``-DSPH_<KIND>_<FIELD>`` defines,
+so the hash covers it too. Nothing is built at import time.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -23,18 +21,23 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from .pair_kernels import RING
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SRCS = (CSRC / "pair_pass.cu", CSRC / "pack.cu")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
+RING_DEFINES = [f"-DSPH_{kind.upper()}_{field.upper()}={int(value)}"
+                for kind, ring in RING.items()
+                for field, value in dataclasses.asdict(ring).items()]
+FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
+         *RING_DEFINES]
 KINDS = ("density", "rho_star", "viscsurf", "paccel", "boundary", "spring",
          "membrane")
 # the first driver's PAccel and RhoStar, for chip_smoke.py's comparison only
 PREV = ("rho_star_prev", "paccel_prev")
-VARIANT_FLAGS = ["-DSPH_PAIR_VARIANTS"]
 
-_libs = {}
+_lib = None
 
 
 def _nvcc() -> str:
@@ -45,16 +48,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _flags(variants: bool) -> list[str]:
-    return FLAGS + VARIANT_FLAGS if variants else FLAGS
-
-
-def library_path(variants: bool = False) -> Path:
-    key = hashlib.sha256(" ".join(_flags(variants)).encode())
+def library_path() -> Path:
+    key = hashlib.sha256(" ".join(FLAGS).encode())
     for src in SRCS:
         key.update(src.name.encode() + src.read_bytes())
-    name = "libsph_variants" if variants else "libsph_kernels"
-    return BUILD_DIR / f"{name}_{key.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libsph_kernels_{key.hexdigest()[:16]}.so"
 
 
 def _run(cmd):
@@ -65,20 +63,19 @@ def _run(cmd):
     return res.stdout + res.stderr
 
 
-def build(variants: bool = False) -> tuple[Path, str]:
+def build() -> tuple[Path, str]:
     """Compile the library if it is not cached; returns (path, compiler
     output: the ptxas register/shared-memory report, kept beside a cached
     library)."""
-    so = library_path(variants)
+    so = library_path()
     log_path = so.with_suffix(".log")
     if so.exists():
         return so, log_path.read_text() if log_path.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    flags = _flags(variants)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, src.stem + ".o") for src in SRCS]
-        procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", obj, str(src)],
+        procs = [subprocess.Popen([nvcc, *FLAGS, "-c", "-o", obj, str(src)],
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for src, obj in zip(SRCS, objs)]
@@ -103,28 +100,25 @@ def build(variants: bool = False) -> tuple[Path, str]:
     return so, log
 
 
-def load(variants: bool = False) -> ctypes.CDLL:
+def load() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
-    if variants not in _libs:
-        so, _ = build(variants)
+    global _lib
+    if _lib is None:
+        so, _ = build()
         lib = ctypes.CDLL(str(so))
         p, i64, i32, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_float)
-        pair_args = [p, i64, p, i64, p, p, p, p, p, p, i32, p, i32, i32, i32,
-                     f, f, f, f, i32, p]
         for kind in KINDS + PREV:
             fn = getattr(lib, "sph_pair_" + kind)
-            fn.argtypes = pair_args
+            fn.argtypes = [p, i64, p, i64, p, p, p, p, p, p, i32, p, i32,
+                           i32, i32, f, f, f, f, i32, p]
             fn.restype = i32
-        if variants:
-            lib.sph_pair_variant.argtypes = [i32] * 6 + pair_args
-            lib.sph_pair_variant.restype = i32
         lib.sph_pack_rows.argtypes = [p, i32, i64, p, p]
         lib.sph_pack_rows.restype = i32
         lib.sph_cuda_error_string.argtypes = [i32]
         lib.sph_cuda_error_string.restype = ctypes.c_void_p
-        _libs[variants] = lib
-    return _libs[variants]
+        _lib = lib
+    return _lib
 
 
 def error_string(err: int) -> str:

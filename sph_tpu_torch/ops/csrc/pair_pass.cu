@@ -16,8 +16,8 @@
 // the same sums and are what the kernels are checked against.
 //
 // Two drivers. pair_pass<P, Gated> (the first design) runs Density, ViscSurf,
-// Boundary, Spring and Membrane; pair_ring<P, R, TPR, Exit, Gated> runs
-// RhoStar and PAccel. The functors below are shared by both.
+// Boundary, Spring and Membrane; pair_ring<P, R, TPR, STAGES, ROWS_CTA, Exit,
+// Gated> runs RhoStar and PAccel. The functors below are shared by both.
 //
 // pair_pass: one CTA per own block, one thread per own row (blockDim =
 // block).
@@ -69,13 +69,14 @@
 // plain loads and two barriers, not overlapped with compute; (4) PAccel
 // ran its force body for every candidate pair, ~97 % of them beyond h. The
 // design:
-//  * a ring of `stages` tiles in dynamic shared memory, each filled by one
+//  * a ring of STAGES tiles in dynamic shared memory, each filled by one
 //    thread with one 1-D bulk copy (cp.async.bulk, the TMA) a slab row and
 //    completed on an mbarrier (arrive.expect_tx), so tile s+1.. land while
 //    tile s is computed; one __syncthreads a tile frees its stage for the
 //    refill. The slab must be 16-byte aligned with a width and ccol that
-//    are multiples of 4 (launch_ring refuses others; tile offsets are
-//    multiples of ALIGN = 128 by construction of the tables);
+//    are multiples of 4, and every tile offset aln[c] + k * ccol a
+//    multiple of 4 (launch_ring refuses the first three; the tables' aln
+//    are multiples of ALIGN = 128 by construction);
 //  * each field is read as a float4 over 4 consecutive columns (a warp
 //    broadcast), and a thread may hold R own rows, so one LDS.128 feeds
 //    4 R pairs: NF / (4 R) shared loads a pair (PAccel NF = 5, RhoStar 3);
@@ -84,8 +85,8 @@
 //    fixed order (shuffles: pairs, then pairs of pairs), so more warps are
 //    in flight than there are rows: the worm has too few rows to fill the
 //    card with one thread a row (~31 warps an SM on its largest launch);
-//  * a CTA takes rows_cta rows of a block, not the whole block (block /
-//    rows_cta CTAs a block, each streaming the block's tiles), so the
+//  * a CTA takes ROWS_CTA rows of a block, not the whole block (block /
+//    ROWS_CTA CTAs a block, each streaming the block's tiles), so the
 //    worm's launches give several CTAs an SM and the load evens out;
 //  * PAccel's early exit (Exit) skips the force body where tt = 0 and
 //    cm <= 0 as computed, where every term is an exact zero, so the sums
@@ -95,10 +96,11 @@
 // TPR 1 a row's sums are bitwise those of pair_pass; with TPR > 1 they
 // are the same on every run but differ from pair_pass's by the rounding of
 // the split (chip_smoke.py holds them to the kernel tolerance). Stages, R,
-// TPR, rows_cta and Exit were chosen by the variant matrix (chip_smoke.py
-// --variants) on the card: R 1-2, TPR 4 and 64 rows a CTA won on the
-// worm's launches, R 4 spilled and lost; the shipped values are at the
-// end of the namespace below.
+// TPR, ROWS_CTA and Exit were chosen by timing a matrix of them on the card
+// (PERF.md): R 1-2, TPR 4 and 64 rows a CTA won on the worm's launches, R 4
+// spilled and lost. The shipped values are owned by ops/pair_kernels.py
+// (RING) and reach this file as -DSPH_<KIND>_<FIELD> defines from
+// ops/_build.py.
 //
 // The subgroup gate (Gated = true; Density, ViscSurf, PAccel). A block's
 // window is the union of its rows' reach: a 256-row block spans several
@@ -503,8 +505,6 @@ int launch(const P& p, const float* own, long long own_w, const float* slab,
 // The ring driver (RhoStar, PAccel; see the header comment)
 // ---------------------------------------------------------------------------
 
-constexpr int kMaxStages = 4;
-
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -555,18 +555,18 @@ __device__ __forceinline__ void tile_at(const int* aln, const int* s0, int b,
   ncol = (int)(avail < ccol ? (avail > 0 ? avail : 0) : ccol);
 }
 
-// Tile s into ring stage s % stages: one arrival with its byte count, then
+// Tile s into ring stage s % STAGES: one arrival with its byte count, then
 // one bulk copy per slab row. Called by one thread.
-template <int NF>
+template <int NF, int STAGES>
 __device__ __forceinline__ void fetch_tile(const float* slab, long long slab_w,
                                            const int* aln, const int* s0,
                                            int b, int s1, int s2, int s,
-                                           int ccol, int stages,
-                                           unsigned ring0, unsigned bar0) {
+                                           int ccol, unsigned ring0,
+                                           unsigned bar0) {
   long long off;
   int ncol;
   tile_at(aln, s0, b, s1, s2, s, ccol, slab_w, off, ncol);
-  const int st = s % stages;
+  const int st = s % STAGES;
   const unsigned bar = bar0 + 8u * st;
   mbar_expect(bar, 4u * NF * ncol);
   if (ncol > 0) {
@@ -593,28 +593,28 @@ __device__ __forceinline__ void ring_column(const P& p,
 
 // R: own rows a thread; TPR: threads a row (part q of a row's TPR threads
 // takes its 4-column groups q, q + TPR, ...; the partial sums are added at
-// the end in a fixed order); Exit: the functor's early exit; Gated: the
-// subgroup gate. A CTA takes rows_cta = R * blockDim.x / TPR consecutive
-// rows of one own block (block / rows_cta CTAs a block); the threads
-// u * TPR .. u * TPR + TPR - 1 share rows u, u + span, ... (span =
-// blockDim.x / TPR), so each warp covers 32 / TPR consecutive rows.
-template <class P, int R, int TPR, bool Exit, bool Gated>
+// the end in a fixed order); STAGES: tiles in the ring; ROWS_CTA: the
+// consecutive rows of one own block a CTA takes (block / ROWS_CTA CTAs a
+// block, ROWS_CTA / R * TPR threads); Exit: the functor's early exit;
+// Gated: the subgroup gate. The threads u * TPR .. u * TPR + TPR - 1 share
+// rows u, u + SPAN, ... (SPAN = ROWS_CTA / R), so each warp covers 32 / TPR
+// consecutive rows.
+template <class P, int R, int TPR, int STAGES, int ROWS_CTA, bool Exit,
+          bool Gated>
 __global__ void __launch_bounds__(512)
 pair_ring(P p, const float* __restrict__ own, long long own_w,
           const float* __restrict__ slab, long long slab_w,
           const int* __restrict__ aln, const int* __restrict__ s0,
           const int* __restrict__ cnt, const int* __restrict__ ob,
           const int* __restrict__ glo, const int* __restrict__ ghi, int sub,
-          float* __restrict__ out, long long n_pad, int block, int ccol,
-          int stages) {
+          float* __restrict__ out, long long n_pad, int block, int ccol) {
   constexpr int NF = P::kRows;
-  extern __shared__ __align__(16) float ring[];  // [stages][NF][ccol]
-  __shared__ __align__(8) unsigned long long full[kMaxStages];
-  const int span = blockDim.x / TPR;
-  const int rows_cta = span * R;
-  const int splits = block / rows_cta;
+  constexpr int SPAN = ROWS_CTA / R;
+  extern __shared__ __align__(16) float ring[];  // [STAGES][NF][ccol]
+  __shared__ __align__(8) unsigned long long full[STAGES];
+  const int splits = block / ROWS_CTA;
   const int b = blockIdx.x / splits;
-  const int r_first = (blockIdx.x - b * splits) * rows_cta;
+  const int r_first = (blockIdx.x - b * splits) * ROWS_CTA;
   const int u = threadIdx.x / TPR;
   const int part = threadIdx.x - u * TPR;
 
@@ -624,14 +624,14 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
   int wlo[Gated ? R : 1][3], whi[Gated ? R : 1][3];
 #pragma unroll
   for (int k = 0; k < R; ++k) {
-    const long long i = (long long)b * block + r_first + k * span + u;
+    const long long i = (long long)b * block + r_first + k * SPAN + u;
     const long long row = (long long)ob[0] + i;
     live[k] = row >= 0 && row < own_w;
     o[k] = p.load(own, own_w, live[k] ? row : 0);
     acc[k] = typename P::Acc{};
     if (Gated) {
       const int ng = block / sub;
-      const int g = (r_first + k * span + u) / sub;
+      const int g = (r_first + k * SPAN + u) / sub;
       for (int d = 0; d < 3; ++d) {
         wlo[k][d] = glo[(3 * b + d) * ng + g];
         whi[k][d] = ghi[(3 * b + d) * ng + g];
@@ -645,14 +645,14 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
   const unsigned ring0 = smem_addr(ring);
   const unsigned bar0 = smem_addr(full);
   if (threadIdx.x == 0) {
-    for (int i = 0; i < stages; ++i) mbar_init(bar0 + 8u * i, 1);
+    for (int i = 0; i < STAGES; ++i) mbar_init(bar0 + 8u * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();  // the barriers are initialised
   if (threadIdx.x == 0) {
-    for (int s = 0; s < stages && s < n_s; ++s)
-      fetch_tile<NF>(slab, slab_w, aln, s0, b, s1, s2, s, ccol, stages,
-                     ring0, bar0);
+    for (int s = 0; s < STAGES && s < n_s; ++s)
+      fetch_tile<NF, STAGES>(slab, slab_w, aln, s0, b, s1, s2, s, ccol,
+                             ring0, bar0);
   }
 
   for (int s = 0; s < n_s; ++s) {
@@ -671,8 +671,8 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
         any = any || on[k];
       }
     }
-    const int st = s % stages;
-    mbar_wait(bar0 + 8u * st, (unsigned)(s / stages) & 1u);
+    const int st = s % STAGES;
+    mbar_wait(bar0 + 8u * st, (unsigned)(s / STAGES) & 1u);
     if (any) {
       const float* t = ring + st * NF * ccol;
 #pragma unroll 2
@@ -687,12 +687,12 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
         ring_column<3, Exit, Gated, R>(p, o, v, acc, on);
       }
     }
-    if (s + stages < n_s) {
+    if (s + STAGES < n_s) {
       __syncthreads();  // every thread is done with stage st
       if (threadIdx.x == 0) {
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        fetch_tile<NF>(slab, slab_w, aln, s0, b, s1, s2, s + stages, ccol,
-                       stages, ring0, bar0);
+        fetch_tile<NF, STAGES>(slab, slab_w, aln, s0, b, s1, s2, s + STAGES,
+                               ccol, ring0, bar0);
       }
     }
   }
@@ -710,55 +710,55 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
     }
     if (part == 0) {
       if (!live[k]) acc[k] = typename P::Acc{};
-      p.store(out, n_pad, (long long)b * block + r_first + k * span + u,
+      p.store(out, n_pad, (long long)b * block + r_first + k * SPAN + u,
               acc[k]);
     }
   }
 }
 
-template <int R, int TPR, bool Exit, bool Gated, class P>
+template <int R, int TPR, int STAGES, int ROWS_CTA, bool Exit, bool Gated,
+          class P>
 int launch_ring(const P& p, const float* own, long long own_w,
                 const float* slab, long long slab_w, const int* aln,
                 const int* s0, const int* cnt, const int* ob, const int* glo,
                 const int* ghi, int sub, float* out, int n_blocks, int block,
-                int ccol, int stages, int rows_cta, void* stream) {
+                int ccol, void* stream) {
+  constexpr int nthr = ROWS_CTA / R * TPR;
   static_assert(TPR == 1 || TPR == 2 || TPR == 4, "threads a row: 1, 2, 4");
+  static_assert(STAGES >= 1 && ROWS_CTA % R == 0 && nthr % 32 == 0 &&
+                    nthr <= 512, "ring configuration");
   if (n_blocks <= 0) return (int)cudaGetLastError();
   if (Gated && (sub <= 0 || block % sub != 0 || !glo || !ghi))
     return (int)cudaErrorInvalidValue;
-  // a block that rows_cta does not divide (block is a multiple of 32)
-  // takes CTAs of the largest power-of-two share of rows_cta that does
-  while (rows_cta > 32 && block % rows_cta != 0) rows_cta /= 2;
-  const int nthr = rows_cta / R * TPR;
-  if (stages < 1 || stages > kMaxStages || rows_cta <= 0 ||
-      block % rows_cta != 0 || rows_cta % R != 0 || nthr % 32 != 0 ||
-      nthr > 512)
-    return (int)cudaErrorInvalidConfiguration;
+  if (block % ROWS_CTA != 0) return (int)cudaErrorInvalidConfiguration;
   // the bulk copies move 16-byte units between 16-byte-aligned addresses
   if (ccol % 4 != 0 || slab_w % 4 != 0 ||
       reinterpret_cast<unsigned long long>(slab) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
-  const size_t smem = sizeof(float) * P::kRows * (size_t)ccol * stages;
+  const size_t smem = sizeof(float) * P::kRows * (size_t)ccol * STAGES;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        pair_ring<P, R, TPR, Exit, Gated>,
+        pair_ring<P, R, TPR, STAGES, ROWS_CTA, Exit, Gated>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int grid = n_blocks * (block / rows_cta);
-  pair_ring<P, R, TPR, Exit, Gated>
+  const int grid = n_blocks * (block / ROWS_CTA);
+  pair_ring<P, R, TPR, STAGES, ROWS_CTA, Exit, Gated>
       <<<grid, nthr, smem, (cudaStream_t)stream>>>(
           p, own, own_w, slab, slab_w, aln, s0, cnt, ob, glo, ghi, sub, out,
-          (long long)n_blocks * block, block, ccol, stages);
+          (long long)n_blocks * block, block, ccol);
   return (int)cudaGetLastError();
 }
 
-// The shipped configuration of the ring driver, chosen by the variant
-// matrix of chip_smoke.py --variants (ops/pair_kernels.py RING reads the
-// stage counts from here to size shared memory).
-constexpr int kRhoStages = 2, kRhoR = 2, kRhoTPR = 4, kRhoRowsCta = 64;
-constexpr int kPaccStages = 2, kPaccR = 1, kPaccTPR = 4, kPaccRowsCta = 64;
-constexpr bool kPaccExit = true;
+// The shipped configuration of a ring kind, from ops/pair_kernels.py RING
+// (the -DSPH_<KIND>_<FIELD> defines of ops/_build.py): R, TPR, STAGES,
+// ROWS_CTA, Exit.
+#if !defined(SPH_RHO_STAR_ROWS) || !defined(SPH_PACCEL_ROWS)
+#error "build with the ring defines of sph_tpu_torch/ops/_build.py"
+#endif
+#define SPH_RING(K)                                                          \
+  SPH_##K##_ROWS, SPH_##K##_TPR, SPH_##K##_STAGES, SPH_##K##_ROWS_CTA,       \
+      (SPH_##K##_EXIT != 0)
 
 }  // namespace
 
@@ -773,9 +773,6 @@ constexpr bool kPaccExit = true;
 #define SPH_PAIR_FWD                                                        \
   own, own_w, slab, slab_w, aln, s0, cnt, ob, glo, ghi, sub, out,          \
       n_blocks, block, ccol, stream
-#define SPH_RING_FWD(stages, rows_cta)                                     \
-  own, own_w, slab, slab_w, aln, s0, cnt, ob, glo, ghi, sub, out,          \
-      n_blocks, block, ccol, stages, rows_cta, stream
 #define SPH_UNGATED(P) \
   (sub != 0 ? (int)cudaErrorInvalidValue : launch<false>(P, SPH_PAIR_FWD))
 #define SPH_GATED(P) \
@@ -789,8 +786,7 @@ int sph_pair_density(SPH_PAIR_ARGS) {
 
 int sph_pair_rho_star(SPH_PAIR_ARGS) {
   if (sub != 0) return (int)cudaErrorInvalidValue;
-  return launch_ring<kRhoR, kRhoTPR, false, false>(
-      RhoStar{c0}, SPH_RING_FWD(kRhoStages, kRhoRowsCta));
+  return launch_ring<SPH_RING(RHO_STAR), false>(RhoStar{c0}, SPH_PAIR_FWD);
 }
 
 int sph_pair_viscsurf(SPH_PAIR_ARGS) {
@@ -799,10 +795,8 @@ int sph_pair_viscsurf(SPH_PAIR_ARGS) {
 
 int sph_pair_paccel(SPH_PAIR_ARGS) {
   const PAccel p{c0, c1, c2, c3};
-  return sub != 0 ? launch_ring<kPaccR, kPaccTPR, kPaccExit, true>(
-                        p, SPH_RING_FWD(kPaccStages, kPaccRowsCta))
-                  : launch_ring<kPaccR, kPaccTPR, kPaccExit, false>(
-                        p, SPH_RING_FWD(kPaccStages, kPaccRowsCta));
+  return sub != 0 ? launch_ring<SPH_RING(PACCEL), true>(p, SPH_PAIR_FWD)
+                  : launch_ring<SPH_RING(PACCEL), false>(p, SPH_PAIR_FWD);
 }
 
 // pair_pass for the two kinds the ring driver took over, kept for
@@ -832,47 +826,3 @@ const char* sph_cuda_error_string(int err) {
 }
 
 }  // extern "C"
-
-#ifdef SPH_PAIR_VARIANTS
-// The variant matrix (chip_smoke.py --variants builds a second library with
-// -DSPH_PAIR_VARIANTS): kind 0 RhoStar, 1 PAccel (gated when sub != 0); r
-// rows a thread (1, 2, 4), tpr threads a row (1, 2, 4), ex the early exit
-// (PAccel only), stages, rows_cta rows a CTA.
-namespace {
-template <bool Exit, bool Gated, class P>
-int variant_of(const P& p, int r, int tpr, SPH_PAIR_ARGS, int stages,
-               int rows_cta) {
-  switch (r * 10 + tpr) {
-    case 11: return launch_ring<1, 1, Exit, Gated>(p, SPH_RING_FWD(stages, rows_cta));
-    case 12: return launch_ring<1, 2, Exit, Gated>(p, SPH_RING_FWD(stages, rows_cta));
-    case 21: return launch_ring<2, 1, Exit, Gated>(p, SPH_RING_FWD(stages, rows_cta));
-    case 22: return launch_ring<2, 2, Exit, Gated>(p, SPH_RING_FWD(stages, rows_cta));
-    case 41: return launch_ring<4, 1, Exit, Gated>(p, SPH_RING_FWD(stages, rows_cta));
-    case 42: return launch_ring<4, 2, Exit, Gated>(p, SPH_RING_FWD(stages, rows_cta));
-    case 14: return launch_ring<1, 4, Exit, Gated>(p, SPH_RING_FWD(stages, rows_cta));
-    case 24: return launch_ring<2, 4, Exit, Gated>(p, SPH_RING_FWD(stages, rows_cta));
-    case 44: return launch_ring<4, 4, Exit, Gated>(p, SPH_RING_FWD(stages, rows_cta));
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-}  // namespace
-
-extern "C" int sph_pair_variant(int kind, int r, int tpr, int ex, int stages,
-                                int rows_cta, SPH_PAIR_ARGS) {
-#define SPH_VAR_FWD r, tpr, own, own_w, slab, slab_w, aln, s0, cnt, ob, glo, \
-      ghi, sub, out, n_blocks, block, ccol, c0, c1, c2, c3, i0, stream,       \
-      stages, rows_cta
-  if (kind == 0) {
-    if (sub != 0 || ex) return (int)cudaErrorInvalidValue;
-    return variant_of<false, false>(RhoStar{c0}, SPH_VAR_FWD);
-  }
-  if (kind != 1) return (int)cudaErrorInvalidValue;
-  const PAccel p{c0, c1, c2, c3};
-  if (sub != 0)
-    return ex ? variant_of<true, true>(p, SPH_VAR_FWD)
-              : variant_of<false, true>(p, SPH_VAR_FWD);
-  return ex ? variant_of<true, false>(p, SPH_VAR_FWD)
-            : variant_of<false, false>(p, SPH_VAR_FWD);
-#undef SPH_VAR_FWD
-}
-#endif  // SPH_PAIR_VARIANTS

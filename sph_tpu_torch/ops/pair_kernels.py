@@ -41,10 +41,12 @@ launch adds one to ``LAUNCHES[kind]``, a gated one to ``LAUNCHES[kind +
 "_sub"]``.
 
 The rho* (raw) and pressure-force kernels run on the ring driver
-(``pair_ring`` in ``csrc/pair_pass.cu``): their slab tiles are copied into a
-ring of ``RING_STAGES[kind]`` shared-memory stages by 16-byte bulk copies,
-so their slab pack must start on a 16-byte boundary and have a width that
-is a multiple of 4, and ``ccol`` must be a multiple of 4 (``_check``).
+(``pair_ring`` in ``csrc/pair_pass.cu``) in the configuration ``RING``
+gives: their slab tiles are copied into a ring of shared-memory stages by
+16-byte bulk copies, so their slab pack must start on a 16-byte boundary
+and have a width that is a multiple of 4, ``ccol`` and every tile offset
+(``aln``) must be multiples of 4, and a CTA's ``rows_cta`` must divide
+``block`` (``_check``).
 """
 from __future__ import annotations
 
@@ -117,9 +119,24 @@ OUTPUT_GROUPS = {
 # kinds with a subgroup-gated kernel (the fast engine's main-window passes)
 GATED = ("density", "viscsurf", "paccel")
 
-# kinds on the ring driver -> its shared-memory stages (kRhoStages and
-# kPaccStages in csrc/pair_pass.cu)
-RING_STAGES = {"rho_star": 2, "paccel": 2}
+
+@dataclasses.dataclass(frozen=True)
+class Ring:
+    """The ring driver's configuration of one kind, compiled into the
+    kernel (``_build.FLAGS`` passes each field as ``-DSPH_<KIND>_<FIELD>``).
+    Chosen by timing a matrix of them on the card (PERF.md)."""
+
+    rows: int          # own rows a thread (R)
+    tpr: int           # threads a row; their partial sums add in fixed order
+    stages: int        # tiles in the shared-memory ring
+    rows_cta: int      # rows of an own block a CTA takes
+    exit: bool = False  # the pressure force's exact early exit
+
+
+# kinds on the ring driver -> their configuration
+RING = {"rho_star": Ring(rows=2, tpr=4, stages=2, rows_cta=64),
+        "paccel": Ring(rows=1, tpr=4, stages=2, rows_cta=64, exit=True)}
+
 
 # Kernel launches per kind, gated launches as kind + "_sub" (plain ints,
 # reset by callers that count a run).
@@ -176,8 +193,9 @@ class PairPass:
     @property
     def shared_bytes(self) -> int:
         """Dynamic shared memory of one kernel launch: one staged tile, or
-        on the ring driver its ring of ``RING_STAGES`` tiles."""
-        return 4 * self.slab_rows * self.ccol * RING_STAGES.get(self.kind, 1)
+        on the ring driver its ring of ``RING[kind].stages`` tiles."""
+        ring = RING.get(self.kind)
+        return 4 * self.slab_rows * self.ccol * (ring.stages if ring else 1)
 
     def __call__(self, tables, own_pack, slab_pack):
         dev = own_pack.device.type
@@ -215,18 +233,6 @@ class PairPass:
         """Launch the CUDA kernel on the current stream."""
         out = _launch(self, tables, own_pack, slab_pack)
         return out[0] if len(out) == 1 else tuple(out)
-
-    def near_pairs(self, tables, own_pack, slab_pack) -> int:
-        """Pressure-force pass only: the (own row, listed column) pairs
-        whose force body runs, 0 < r and r < h (tt > 0) or r < h/4, as the
-        kernel tests them in f32 after its early exit; every other pair is
-        an exact zero of the sums. The data-dependent part of the kernel's
-        work (``chip_smoke.py::pass_bound``)."""
-        if self.kind != "paccel":
-            raise ValueError(f"{self.kind}: near_pairs is the paccel "
-                             "pass's count")
-        cnt = _plain(self, tables, own_pack, slab_pack, pairs=_paccel_near)
-        return int(cnt[0].sum())
 
 
 def _rows(p: PairPass) -> tuple[int, int, int]:
@@ -399,15 +405,6 @@ def _paccel_pairs(p, o, s, valid, gid, scale):
     return [_sum(w * d, scale) * out_c for d in (dx, dy, dz)]
 
 
-def _paccel_near(p, o, s, valid, gid, scale):
-    h, h4 = p.consts[:2]
-    dx, dy, dz = o[0] - s[0], o[1] - s[1], o[2] - s[2]
-    r2 = dx * dx + dy * dy + dz * dz
-    r = r2 * torch.rsqrt(torch.clamp(r2, min=1e-30))
-    body = valid & (r2 > 0.0) & ((h - r > 0.0) | (h4 - r > 0.0))
-    return [body.sum(-1, dtype=torch.int64)]
-
-
 def _boundary_pairs(p, o, s, valid, gid, scale):
     r0, inv_r0 = p.consts
     dnx, dny, dnz = o[3] - s[PB_X], o[4] - s[PB_Y], o[5] - s[PB_Z]
@@ -511,18 +508,28 @@ def _group_gate(p: PairPass, tables, blocks, off):
         hit.shape[0], p.block, -1)
 
 
-def _plain(p: PairPass, tables, own, slab, scale=False, pairs=None):
+def _plain(p: PairPass, tables, own, slab, scale=False):
     """Sum over each block's tiles: pair matrices gathered per chunk of
     blocks (blocks without tiles skipped), with none of the TPU driver's
-    static tile caps. ``scale``: the sums' rounding scale instead;
-    ``pairs``: another per-pair function than the pass's (one output)."""
-    n_out, own_rows, slab_rows = _rows(p)
+    static tile caps. ``scale``: the sums' rounding scale instead."""
+    n_out = _rows(p)[0]
+    out = torch.zeros((n_out, p.n_blocks, p.block), dtype=own.dtype,
+                      device=own.device)
+    for blocks, live, o, s, valid, gid in pair_chunks(p, tables, own, slab):
+        res = _PAIRS[p.kind](p, o, s, valid, gid, scale)
+        for k, r in enumerate(res):
+            out[k, blocks] = torch.where(live, r, 0.0)
+    return list(out.reshape(n_out, p.n_pad))
+
+
+def pair_chunks(p: PairPass, tables, own, slab):
+    """The pass's pair matrices, chunk by chunk of the blocks with tiles:
+    yields (blocks [nb], live own rows [nb, B], own fields [k, nb, B, 1],
+    slab fields [k, nb, 1, C], valid pairs [nb, B | 1, C] (tile listed,
+    column in the slab, gate), own row ids as the packs' dtype [nb, B, 1])."""
+    _, own_rows, slab_rows = _rows(p)
     B = p.block
     dev = own.device
-    dtype = own.dtype
-    if pairs is not None:
-        n_out, dtype = 1, torch.int64
-    out = torch.zeros((n_out, p.n_blocks, B), dtype=dtype, device=dev)
     cnt = tables[4].long()
     # host syncs: the plain path sizes its gathers from the tables
     active = torch.nonzero(cnt > 0).reshape(-1)
@@ -532,7 +539,6 @@ def _plain(p: PairPass, tables, own, slab, scale=False, pairs=None):
     own_w, slab_w = own.shape[1], slab.shape[1]
     own = own[:own_rows]
     slab = slab[:slab_rows]
-    pairs = pairs or _PAIRS[p.kind]
     budget = _PLAIN_PAIRS[dev.type]
     i = 0
     while i < len(counts):
@@ -553,11 +559,8 @@ def _plain(p: PairPass, tables, own, slab, scale=False, pairs=None):
         valid = valid[:, None, :]
         if p.gated:
             valid = valid & _group_gate(p, tables, blocks, off)
-        res = pairs(p, o, s, valid, gid, scale)
-        for k, r in enumerate(res):
-            out[k, blocks] = torch.where(live, r, 0)
+        yield blocks, live, o, s, valid, gid
         i = j
-    return list(out.reshape(n_out, p.n_pad))
 
 
 # ---------------------------------------------------------------------------
@@ -598,15 +601,24 @@ def _check(p: PairPass, tables, own, slab):
     if not (32 <= p.block <= 1024 and p.block % 32 == 0):
         raise ValueError(f"{p.kind}: block {p.block} is not a multiple of "
                          "32 in [32, 1024]")
-    if p.kind in RING_STAGES:
-        # the ring driver's bulk copies: 16-byte units, 16-byte aligned
-        if slab.data_ptr() % 16 or slab.shape[1] % 4 or p.ccol % 4:
-            raise ValueError(
-                f"{p.kind}: the ring kernel needs a slab pack on a 16-byte "
-                f"boundary with a width and ccol that are multiples of 4; "
-                f"got address {slab.data_ptr()} (mod 16: "
-                f"{slab.data_ptr() % 16}), width {slab.shape[1]}, ccol "
-                f"{p.ccol}")
+    ring = RING.get(p.kind)
+    if ring is None:
+        return
+    if p.block % ring.rows_cta:
+        raise ValueError(f"{p.kind}: the ring kernel takes {ring.rows_cta} "
+                         f"rows a CTA, which do not divide block {p.block}")
+    # the ring driver's bulk copies: 16-byte units, 16-byte aligned. Tables
+    # on the card are not read here (a host sync a launch): the engines'
+    # aln are multiples of ALIGN by construction
+    aln = tables[0]
+    if slab.data_ptr() % 16 or slab.shape[1] % 4 or p.ccol % 4 or (
+            aln.device.type == "cpu" and bool((aln % 4 != 0).any())):
+        raise ValueError(
+            f"{p.kind}: the ring kernel needs a slab pack on a 16-byte "
+            f"boundary with a width, ccol and tile offsets (aln) that are "
+            f"multiples of 4; got address {slab.data_ptr()} (mod 16: "
+            f"{slab.data_ptr() % 16}), width {slab.shape[1]}, ccol "
+            f"{p.ccol}")
 
 
 def _launch(p: PairPass, tables, own, slab):
@@ -615,15 +627,15 @@ def _launch(p: PairPass, tables, own, slab):
     return out
 
 
-def _call(p: PairPass, tables, own, slab, entry=None, lib=None, pre=()):
-    """Check the inputs, launch ``sph_pair_<kind>`` (or ``entry`` of
-    ``lib``, with the int arguments ``pre`` first) on the current stream,
-    raise on a launch error; returns the output rows. Counts nothing:
-    ``_launch`` counts the pass's own launches."""
+def _call(p: PairPass, tables, own, slab, entry=None):
+    """Check the inputs, launch ``sph_pair_<kind>`` (or the library's
+    ``entry``) on the current stream, raise on a launch error; returns the
+    output rows. Counts nothing: ``_launch`` counts the pass's own
+    launches."""
     from . import _build
 
     _check(p, tables, own, slab)
-    lib = lib or _build.load()
+    lib = _build.load()
     n_out = _rows(p)[0]
     out = torch.empty((n_out, p.n_pad), dtype=torch.float32,
                       device=own.device)
@@ -635,7 +647,7 @@ def _call(p: PairPass, tables, own, slab, entry=None, lib=None, pre=()):
     with torch.cuda.device(own.device):
         stream = torch.cuda.current_stream(own.device).cuda_stream
         err = getattr(lib, entry or "sph_pair_" + p.kind)(
-            *pre, own.data_ptr(), own.shape[1], slab.data_ptr(), slab.shape[1],
+            own.data_ptr(), own.shape[1], slab.data_ptr(), slab.shape[1],
             aln.data_ptr(), s0.data_ptr(), cnt.data_ptr(), ob.data_ptr(),
             glo, ghi, p.sub if p.gated else 0,
             out.data_ptr(), p.n_blocks, p.block, p.ccol, *consts, p.n_slots,

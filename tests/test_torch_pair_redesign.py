@@ -1,8 +1,9 @@
 """The host side of the ring driver that runs the rho* (raw) and
 pressure-force kernels (``pair_ring`` in ``sph_tpu_torch/ops/csrc/
-pair_pass.cu``): the checks of its preconditions, the shared memory it
-reports, and the near-pair count that charges the pressure-force kernel's
-bound for its early exit.
+pair_pass.cu``): the checks of its preconditions, its configuration's way
+into the build, the shared memory it reports, and the near-pair count that
+charges the pressure-force kernel's bound for its early exit
+(``chip_smoke.near_pairs``).
 
 Inputs are the packs and tables that the port's fastw and fast engines hand
 their passes in one step of the kicked 8h box (the fixtures of
@@ -19,10 +20,10 @@ import numpy as np
 import pytest
 import torch
 
+from sph_tpu_torch.ops import _build
 from sph_tpu_torch.ops import pair_kernels as pk
 from test_torch_pair_kernels import recorded, recorded_fast  # noqa: F401
 
-SRC = (Path(pk.__file__).resolve().parent / "csrc" / "pair_pass.cu")
 H100_SMEM = 232_448   # the most dynamic shared memory a CTA may take
 RING_NAMES = ["raw_mm", "raw_ms", "raw_sm", "pacc_mm", "pacc_ms"]
 
@@ -31,7 +32,7 @@ def ring_calls(recorded, recorded_fast):
     """name -> (pass, tables, own, slab) of every recorded ring launch."""
     calls = {k: v for k, v in recorded[1].items() if k in RING_NAMES}
     calls["fast_paccel"] = recorded_fast[1]["paccel"]
-    assert all(c[0].kind in pk.RING_STAGES for c in calls.values())
+    assert all(c[0].kind in pk.RING for c in calls.values())
     return calls
 
 
@@ -65,21 +66,49 @@ def test_check_refuses_what_the_ring_cannot_copy(recorded, recorded_fast,
     odd = dataclasses.replace(p, ccol=p.ccol + 2)
     with pytest.raises(ValueError, match=f"ccol {p.ccol + 2}"):
         pk._check(odd, tables, own, slab)
+    # a tile offset 2 columns off a multiple of 4 (CPU tables are read)
+    shifted = (tables[0] + 2,) + tuple(tables[1:])
+    with pytest.raises(ValueError, match=r"tile offsets \(aln\)"):
+        pk._check(p, shifted, own, slab)
+
+
+@pytest.mark.parametrize("name", ["raw_ms", "pacc_mm", "fast_paccel"])
+def test_check_refuses_a_block_the_ctas_do_not_tile(recorded, recorded_fast,
+                                                    name):
+    """A CTA takes ``rows_cta`` rows of a block: a block 32 rows short of
+    a multiple of it is refused before a launch."""
+    p, tables, own, slab = ring_calls(recorded, recorded_fast)[name]
+    rows_cta = pk.RING[p.kind].rows_cta
+    assert p.block % rows_cta == 0
+    odd = dataclasses.replace(p, block=p.block - 32, sub=None)
+    with pytest.raises(ValueError, match=f"do not divide block {odd.block}"):
+        pk._check(odd, tables[:6], own, slab)
 
 
 def test_first_driver_kinds_keep_their_inputs(recorded):
     """The kinds on the first driver stage tiles with plain loads: a pack
     off a 16-byte boundary is still theirs to take."""
     p, tables, own, slab = recorded[1]["visc_mm"]
-    assert p.kind not in pk.RING_STAGES
+    assert p.kind not in pk.RING
     pk._check(p, tables, own, misaligned(slab))
 
 
-def test_ring_stages_match_the_kernel_source():
-    src = SRC.read_text()
-    for kind, name in (("rho_star", "kRhoStages"), ("paccel", "kPaccStages")):
-        m = re.search(rf"\b{name} = (\d+)", src)
-        assert m and int(m[1]) == pk.RING_STAGES[kind] >= 2, kind
+@pytest.mark.parametrize("kind", sorted(pk.RING))
+def test_ring_config_reaches_the_build(kind):
+    """``pk.RING`` is the one owner of the ring configuration: each field
+    reaches nvcc as a define in ``_build.FLAGS`` (so the library's hash
+    covers it), and it meets the kernel's static_asserts and the engines'
+    blocks (128, 256) here, before a build on the card."""
+    ring = pk.RING[kind]
+    for field, value in dataclasses.asdict(ring).items():
+        flag = f"-DSPH_{kind.upper()}_{field.upper()}={int(value)}"
+        assert _build.FLAGS.count(flag) == 1, flag
+    threads = ring.rows_cta // ring.rows * ring.tpr
+    assert ring.tpr in (1, 2, 4) and ring.stages >= 2
+    assert ring.rows_cta % ring.rows == 0
+    assert threads % 32 == 0 and threads <= 512
+    assert 128 % ring.rows_cta == 0 and 256 % ring.rows_cta == 0
+    assert ring.exit == (kind == "paccel")
 
 
 @pytest.mark.parametrize("kind,ccol", [("rho_star", 512), ("rho_star", 256),
@@ -96,7 +125,7 @@ def test_shared_bytes_is_the_ring(kind, ccol):
         p = pk.make_paccel_pass(inv_h=1.0, rho0_delta=1.0, **kw)
         rows = 5
     assert p.slab_rows == rows
-    assert p.shared_bytes == pk.RING_STAGES[kind] * rows * ccol * 4
+    assert p.shared_bytes == pk.RING[kind].stages * rows * ccol * 4
     assert p.shared_bytes < H100_SMEM
     visc = pk.make_viscsurf_pass(**kw)
     assert visc.shared_bytes == visc.slab_rows * ccol * 4
@@ -125,20 +154,20 @@ def test_near_pairs_count(recorded, recorded_fast, name):
     that stream tiles (the fast engine gives its wall-only blocks none):
     the maskless invariant puts each in exactly one tile of its row's
     block."""
+    from chip_smoke import near_pairs
+
     p, tables, own, slab = ring_calls(recorded, recorded_fast)[name]
     ob = int(tables[5][0])
     streams = np.nonzero(tables[4].numpy() > 0)[0]
     rows = (streams[:, None] * p.block + np.arange(p.block)).ravel() + ob
     rows = rows[(rows >= 0) & (rows < own.shape[1])]
-    n = p.near_pairs(tables, own, slab)
+    n = near_pairs(p, tables, own, slab)
     assert n == brute_near_pairs(p, own, slab, rows)
     if p.gated:
         ungated = dataclasses.replace(p, sub=None)
-        assert ungated.near_pairs(tables[:6], own, slab) == n
+        assert near_pairs(ungated, tables[:6], own, slab) == n
     cand = int(tables[4].long().sum()) * p.ccol * p.block
     assert 0 < n < cand / 4, (n, cand)
-    with pytest.raises(ValueError, match="paccel"):
-        recorded[1]["raw_mm"][0].near_pairs(*recorded[1]["raw_mm"][1:])
 
 
 def test_first_design_entries_only_in_the_chip_check():
