@@ -68,14 +68,14 @@ Phases (any failure raises and exits nonzero, printing no result):
    printed (after it, later profiler sessions in the process were seen to
    drop kernel records, so no phase measures device time after it);
 10. kernel vs plain (full worm): phase 7's check and counts on the main
-   path's final state, the spring launch's shared-memory size (above
-   48 KB: the opt-in branch), then all six kernels and their plain
-   versions timed with CUDA events at those shapes, beside each kernel's
-   bound: the candidate pairs its tables list (tiles x tile width x real
-   own rows) x the functor's operations a pair (for the spring and membrane
-   passes what this run's data needs, see ``PAIR_FLOPS``) over the card's
-   f32 rate, against its input and output bytes over the card's memory
-   rate.
+   path's final state, the spring list's entries (kept of the slots the
+   slab lists), then all six kernels and their plain versions timed with
+   CUDA events at those shapes, beside each kernel's bound: the candidate
+   pairs its tables list (tiles x tile width x real own rows) x the
+   functor's operations a pair (for the membrane pass and the early exits
+   what this run's data needs, see ``PAIR_FLOPS``) over the card's f32
+   rate, against its input and output bytes over the card's memory rate;
+   the spring list what its entries need (``list_bound``).
 
 11. kernel vs plain (fast engine, small box): phase 3's settled box with
    ``compute_fast_config`` at block 128, ccol 128, every pass of one fast
@@ -122,20 +122,25 @@ Phases (any failure raises and exits nonzero, printing no result):
    ``pack`` calls counted (one launch a call), its table of times, and the
    kernel, plain and ``torch.stack`` times beside the kernel's bound (8
    rows read and written once over the card's memory rate);
-19. the ring driver against the first design: the rho* and paccel kernels
-   (``pair_ring``) against ``pair_pass`` for the same functors (entry points
+19. the redesigned kernels against their first designs: the rho*,
+   viscsurf and paccel kernels (``pair_ring``) and the spring list kernel
+   against ``pair_pass`` for the same functors (entry points
    ``sph_pair_<kind>_prev``, which only this phase calls) on every recorded
    launch of the fastw worm and box (phases 10 and 6: raw_mm, raw_ms,
-   raw_sm, pacc_mm, pacc_ms) and of the fast engine's paccel on the
-   dam-break and the fast worm, ungated and at sub 8/16/32 (phases 14 and
-   15; with ``--only ab`` the inputs come from one resort period of each
-   path): bitwise where the shipped configuration keeps one thread a row,
-   else held as phase 3 holds a kernel to its plain version; the two timed
-   in turns (previous, ring, ring, previous; CUDA events around 20
-   launches) and by torch.profiler device time, beside the bound (paccel
-   charged for its early exit, ``PACCEL_TEST_FLOPS``, and the all-pairs
-   charge beside it); the host microseconds of one pair launch. Checks no
-   spill in the shipped ring kernels.
+   raw_sm, visc_mm, visc_ms, pacc_mm, pacc_ms, spring_ms) and of the fast
+   engine's viscsurf and paccel on the dam-break and the fast worm, ungated
+   and at sub 8/16/32, and its spring on the fast worm (phases 14 and 15;
+   with ``--only ab`` the inputs come from one resort period of each
+   path): bitwise where the shipped configuration keeps one thread a row
+   (the list kernel does), else held as phase 3 holds a kernel to its plain
+   version; the two timed in turns (previous, new, new, previous; CUDA
+   events around 20 launches) and by torch.profiler device time, beside
+   the bound (the exits charged for what runs, ``EXIT_FLOPS``, with the
+   all-pairs charge beside it; the spring list for its entries, with the
+   pair form's charge beside it) and the device time of an empty launch;
+   the host microseconds of one pair launch; the first spring design's
+   launch takes the shared-memory opt-in branch (above 48 KB). Checks no
+   spill in the shipped ring and list kernels.
 
 Each phase prints its seconds. ``--only`` runs the named phases alone
 (small: 3-4, box: 5-6, rworm: 7, rworm_engine: 8, worm: 9-10, small_fast:
@@ -145,9 +150,9 @@ Each phase prints its seconds. ``--only`` runs the named phases alone
 
 Ends with a JSON line of per-kernel results (each kernel's numbers from the
 path that runs it at its main shapes, with its launches a step on every
-path, its registers, and for the ring kernels the in-call A/B's per-step
-times, ``prev_ms`` beside ``ab_ms`` and their profiler device times) and,
-last, the one-line ``{"ok": true, "device": {...}}``.
+path, its registers, and for the redesigned kernels the in-call A/B's
+per-step times, ``prev_ms`` beside ``ab_ms`` and their profiler device
+times) and, last, the one-line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -222,21 +227,25 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 # f32 operations of one candidate pair in each functor of pair_pass.cu,
 # counted by hand from its pair() (a compare, min/max, sqrt, rsqrt and a
-# division count one each). The four liquid passes charge every candidate
-# pair the whole functor. The two elastic passes do work that depends on
-# the data, and are charged what this run's data needs: spring one id
-# compare a slot for every candidate pair, the sums (3 a matched slot, 28 a
-# pair) for the springs the slab lists; membrane the distance test (12) for
-# every candidate pair and the 7-triangle side test and sums (7 x 24 + 12)
-# for the pairs within r0.
+# division count one each). The liquid passes charge every candidate pair
+# the whole functor. The two elastic passes do work that depends on the
+# data, and are charged what this run's data needs: membrane the distance
+# test (12) for every candidate pair and the 7-triangle side test and sums
+# (7 x 24 + 12) for the pairs within r0; spring see below.
 PAIR_FLOPS = {"density": 13, "rho_star": 13, "viscsurf": 25, "paccel": 29,
               "boundary": 22}
-# paccel on the ring driver exits early beyond h: the distance and radius
-# test (17, the exit's two compares included) for every candidate pair, the
-# force body (12) for the pairs that run it (``near_pairs``).
-# PAIR_FLOPS["paccel"] stays the all-pairs charge, printed beside it.
-PACCEL_TEST_FLOPS, PACCEL_NEAR_FLOPS = 17, 12
-SPRING_MATCH_FLOPS = 3 + 28
+# The ring kernels with an early exit are charged what runs: paccel the
+# distance and radius test (17, the exit's two compares included) for every
+# candidate pair, the force body (12) for the pairs that run it; viscsurf
+# the distance and its exit test (9) for every candidate pair, the rest
+# (17: sqrtf, the weight, the three velocity terms and the surface test and
+# sums) for the pairs under its reach (``near_pairs``). PAIR_FLOPS stays the
+# all-pairs charge, printed beside it.
+EXIT_FLOPS = {"paccel": (17, 12), "viscsurf": (9, 17)}
+# spring on its list: 3 a kept entry (msum, rest, actf), 28 a merged
+# column's term; the first design (a pair pass) one id compare a slot for
+# every candidate pair and the same sums
+SPRING_ENTRY_FLOPS, SPRING_TERM_FLOPS = 3, 28
 MEMBRANE_TEST_FLOPS, MEMBRANE_NEAR_FLOPS = 12, 7 * 24 + 12
 # the reduced worm: full length in a narrower pool, every spring anchor
 # elastic (a lower or tighter box anchors the worm's springs to the walls)
@@ -366,8 +375,9 @@ def elastic_input_counts(params, calls, label,
     >= 1 and >= 2 triangles.
     The pairs come from a k-d tree on the host: within r0 is within the
     block's window, so the tables list them. Returns the data-dependent
-    work of the two passes for ``pass_bound``: the springs the slab lists,
-    and the pairs of any real own row and an elastic column within r0."""
+    work of the two passes for ``pass_bound``: the springs the slab lists
+    (the first design's charge), and the pairs of any real own row and an
+    elastic column within r0."""
     p, _, _, slab = calls[names[0]][:4]
     n_act = int((slab[3 + 2 * p.n_slots:3 + 3 * p.n_slots] != 0).sum())
     n_springs = int((slab[3:3 + p.n_slots] >= 0).sum())
@@ -424,28 +434,67 @@ def computed_pairs(p, tables, own, far):
 
 
 def near_pairs(p, tables, own, slab) -> int:
-    """paccel only: the (own row, listed column) pairs whose force body
-    runs after the ring kernel's early exit, 0 < r and (r < h or r < h/4)
-    as the kernel tests them in f32; every other pair is an exact zero of
-    the sums. The data-dependent part of its work (``pass_bound``)."""
-    h, h4 = p.consts[:2]
+    """The (own row, listed column) pairs whose body runs after a ring
+    kernel's early exit, as the kernel tests them in f32: paccel 0 < r and
+    (r < h or r < h/4), viscsurf r2 < its reach; every other pair is an
+    exact zero of the sums. The data-dependent part of their work
+    (``pass_bound``)."""
     n = 0
     for _, live, o, s, valid, _ in pk.pair_chunks(p, tables, own, slab):
         dx, dy, dz = o[0] - s[0], o[1] - s[1], o[2] - s[2]
         r2 = dx * dx + dy * dy + dz * dz
-        r = r2 * torch.rsqrt(torch.clamp(r2, min=1e-30))
-        body = valid & (r2 > 0.0) & ((h - r > 0.0) | (h4 - r > 0.0))
+        if p.kind == "viscsurf":
+            body = valid & (r2 < p.consts[3])
+        else:
+            h, h4 = p.consts[:2]
+            r = r2 * torch.rsqrt(torch.clamp(r2, min=1e-30))
+            body = valid & (r2 > 0.0) & ((h - r > 0.0) | (h4 - r > 0.0))
         n += int((body.sum(-1) * live).sum())
     return n
+
+
+def spring_list_work(p, tables, own):
+    """(kept entries, merged columns, distinct columns, rows with entries)
+    of a spring list: the data its kernel must read and sum."""
+    row_ptr, ent = tables[6].long(), tables[7].long()
+    kept = int(row_ptr[-1])
+    n_row = row_ptr[1:] - row_ptr[:-1]
+    row = torch.repeat_interleave(torch.arange(p.n_pad, device=own.device),
+                                  n_row)
+    col = ent[:kept] // p.n_slots
+    new = torch.ones_like(col, dtype=torch.bool)
+    new[1:] = (row[1:] != row[:-1]) | (col[1:] != col[:-1])
+    return (kept, int(new.sum()), int(torch.unique(col).numel()),
+            int((n_row > 0).sum()))
+
+
+def list_bound(p, tables, own):
+    """(merged columns, bound ms, "operations" | "bytes") of one spring
+    list launch: bytes = the kept entries and their rest and activation
+    terms (12 B each), row_ptr, the positions of the columns and of the
+    rows they name, and the outputs, each once; operations = 3 a kept entry
+    and 28 a merged column."""
+    kept, merged, cols, rows = spring_list_work(p, tables, own)
+    nbytes = (12 * kept + 4 * (p.n_pad + 1) + 12 * (cols + rows)
+              + 12 * p.n_pad)
+    ops = SPRING_ENTRY_FLOPS * kept + SPRING_TERM_FLOPS * merged
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return merged, max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                         else "bytes")
 
 
 def pass_bound(p, tables, own, slab, far, data_work):
     """(candidate pairs, bound ms, "operations" | "bytes") of one launch:
     pairs = ``computed_pairs``; operations = pairs x the functor's count
     (see ``PAIR_FLOPS``; ``data_work`` holds the elastic passes'
-    data-dependent pair counts, paccel's near pairs are counted here) over
-    the card's f32 peak; bytes = the pack rows the pass reads, its tables
-    and its outputs, each once, over the card's memory rate."""
+    data-dependent pair counts, the exits' near pairs are counted here)
+    over the card's f32 peak; bytes = the pack rows the pass reads, its
+    tables and its outputs, each once, over the card's memory rate. The
+    spring pass on its list: ``list_bound``; on the 6-tuple tables (its
+    first design) the pair pass's bound."""
+    if p.kind == "spring" and len(tables) == 8:
+        return list_bound(p, tables, own)
     n_out, own_rows, slab_rows = pk._rows(p)
     pairs = computed_pairs(p, tables, own, far)[0]
     nbytes = 4 * (slab_rows * slab.shape[1] + n_out * p.n_pad
@@ -453,13 +502,14 @@ def pass_bound(p, tables, own, slab, far, data_work):
     if own.data_ptr() != slab.data_ptr():
         nbytes += 4 * own_rows * p.n_pad
     if p.kind == "spring":
-        ops = pairs * p.n_slots + data_work["spring"] * SPRING_MATCH_FLOPS
+        ops = pairs * p.n_slots + data_work["spring"] * (
+            SPRING_ENTRY_FLOPS + SPRING_TERM_FLOPS)
     elif p.kind == "membrane":
         ops = (pairs * MEMBRANE_TEST_FLOPS
                + data_work["membrane"] * MEMBRANE_NEAR_FLOPS)
-    elif p.kind == "paccel":
-        ops = (pairs * PACCEL_TEST_FLOPS
-               + near_pairs(p, tables, own, slab) * PACCEL_NEAR_FLOPS)
+    elif p.kind in EXIT_FLOPS:
+        test, body = EXIT_FLOPS[p.kind]
+        ops = pairs * test + near_pairs(p, tables, own, slab) * body
     else:
         ops = pairs * PAIR_FLOPS[p.kind]
     t_ops = ops / PEAK_F32_FLOPS * 1e3
@@ -948,13 +998,14 @@ def worm_phases(card, profile_steps):
     print(f"  worm  data-dependent work: {data_work['spring']} springs "
           f"listed, {data_work['membrane']} own-column pairs within r0",
           flush=True)
-    spring = calls["spring_ms"][0]
-    print(f"  worm  spring launch: {spring.slab_rows} slab rows x "
-          f"{spring.ccol} columns = {spring.shared_bytes} B of dynamic "
-          f"shared memory (opt-in above {48 * 1024}); membrane "
-          f"{calls['mem_ms'][0].shared_bytes} B", flush=True)
-    check(spring.shared_bytes > 48 * 1024,
-          "the spring launch did not take the shared-memory opt-in branch")
+    spring, spr_list = calls["spring_ms"][:2]
+    kept, merged, cols, rows = spring_list_work(spring, spr_list,
+                                                calls["spring_ms"][2])
+    print(f"  worm  spring list: {kept} entries kept of {data_work['spring']}"
+          f" listed slots, {merged} merged columns, {cols} columns, {rows} "
+          f"rows with springs; membrane launch "
+          f"{calls['mem_ms'][0].shared_bytes} B of dynamic shared memory",
+          flush=True)
     far = box_edge(params)
     errs = compare(calls, "worm", far)
     stash_ab("worm", calls, {n: PASSES[n][1] for n in calls})
@@ -1532,11 +1583,13 @@ FUNCTORS = {"density": "Density", "rho_star": "RhoStar",
             "viscsurf": "ViscSurf", "paccel": "PAccel",
             "boundary": "Boundary", "spring": "Spring",
             "membrane": "Membrane"}
-# inputs of the ring kernels, label -> {name: (call, launches a step)},
-# filled by the phases that record them (5, 10, 14, 15); phase 19 records
-# what is missing from one resort period of the path (``--only ab``)
+# inputs of the redesigned kernels (the ring kinds and the spring list),
+# label -> {name: (call, launches a step)}, filled by the phases that record
+# them (5, 10, 14, 15); phase 19 records what is missing from one resort
+# period of the path (``--only ab``)
 AB_INPUTS = {}
 AB_LABELS = ("worm", "box", "dam", "fast_worm")
+AB_KINDS = (*pk.RING, "spring")
 AB_REPS = 20
 # the ptxas report of the library (filled in main)
 BUILD_REPORT = []
@@ -1546,7 +1599,8 @@ PROFILE_SIM = []
 
 def describe(mangled):
     """(driver, kind, label) of a kernel from its mangled name."""
-    driver = next((d for d in ("pair_ring", "pair_pass", "pack_rows")
+    driver = next((d for d in ("pair_ring", "pair_pass", "spring_list",
+                               "pack_rows")
                    if f"{len(d)}{d}" in mangled), "?")
     kind = next((k for k, f in FUNCTORS.items() if f"{len(f)}{f}" in mangled),
                 "")
@@ -1560,6 +1614,8 @@ def describe(mangled):
     elif driver == "pair_pass" and bools:
         label = f"pair_pass<{FUNCTORS[kind]}, gated {bools[0]}>"
         key = (kind, bools[0])
+    elif driver == "spring_list":
+        label, key = "spring_list<Spring>", ("spring", 0)
     elif driver == "pack_rows":
         elem = "float4" if "6float4" in mangled else "float"
         label, key = f"pack_rows<{elem}>", (driver, elem)
@@ -1600,8 +1656,10 @@ def ptxas_report(log):
 
 def shipped_kernel(kind, gated):
     """The ptxas entry of the kernel that kind's entry point launches (the
-    ring driver's for the kinds in ``pk.RING``)."""
-    driver = "pair_ring" if kind in pk.RING else "pair_pass"
+    ring driver's for the kinds in ``pk.RING``, the list kernel's for the
+    spring pass)."""
+    driver = ("pair_ring" if kind in pk.RING else
+              "spring_list" if kind == "spring" else "pair_pass")
     return next((r for r in BUILD_REPORT if r["driver"] == driver
                  and r["key"] == (kind, int(gated))), None)
 
@@ -1621,19 +1679,23 @@ def fmt_ms(ms):
 
 def stash_ab(label, calls, mults):
     AB_INPUTS[label] = {name: (c, mults[name]) for name, c in calls.items()
-                        if c[0].kind in pk.RING}
+                        if c[0].kind in AB_KINDS}
 
 
 def fast_ab_inputs(params, sim, state, label):
-    """The fast engine's paccel launch on ``state``, ungated and at sub
-    8/16/32 (the sim's config otherwise)."""
+    """The fast engine's viscsurf and paccel launches on ``state``, ungated
+    and at sub 8/16/32 (the sim's config otherwise), and its spring launch
+    where the scene has one."""
     out = {}
     for sub in SUBS:
         cfg = dataclasses.replace(sim._fast_cfg, sub=sub)
         calls = record_fast_inputs(params, sim.layout, cfg, state,
                                    sim.springs, sim.membranes)
-        out[f"paccel_s{sub}" if sub else "paccel"] = (
-            calls["paccel"], FAST_PASSES["paccel"])
+        for kind in ("viscsurf", "paccel"):
+            out[f"{kind}_s{sub}" if sub else kind] = (
+                calls[kind], FAST_PASSES[kind])
+        if sub is None and "spring" in calls:
+            out["spring"] = (calls["spring"], FAST_PASSES["spring"])
     AB_INPUTS[label] = out
 
 
@@ -1674,6 +1736,13 @@ def tile_stats(p, tables):
 
 def prev_call(p, tables, own, slab):
     return pk._call(p, tables, own, slab, entry=f"sph_pair_{p.kind}_prev")
+
+
+def launch_floor_ms():
+    """Device milliseconds of an empty launch: torch's elementwise kernel
+    on one element (torch.profiler), the floor under any kernel's time."""
+    one = torch.zeros(1, device="cuda")
+    return device_ms(lambda: one.add_(1.0))
 
 
 def held_to(a, b, call, bitwise, scales, far):
@@ -1726,28 +1795,43 @@ def host_launch_us(call, reps=200):
 
 
 def ab_phase(card, profile_steps):
-    # 19. the ring kernels against the first design (pair_pass) on every
-    # recorded launch: bitwise, then timed in turns
+    # 19. the redesigned kernels (the ring driver's, the spring list)
+    # against their first designs (pair_pass) on every recorded launch:
+    # bitwise or within the kernel tolerance, then timed in turns
     far = box_edge(SimParams())
     for label in AB_LABELS:
         if label not in AB_INPUTS:
             ab_record(label)
-    for r in (shipped_kernel(k, g) for k in pk.RING for g in (0, 1)):
+    for r in (shipped_kernel(k, g) for k in AB_KINDS for g in (0, 1)):
         if r is not None:
             check(r["spill_st"] == 0 and r["spill_ld"] == 0,
                   f"{r['label']} spills: {r}")
+    floor_ms = launch_floor_ms()
+    print(f"  ab device time of an empty launch (one-element add_, "
+          f"torch.profiler): {fmt_ms(floor_ms)} ms [{card}]", flush=True)
     totals, scales = {}, {}
     for label in AB_LABELS:
         for name, (call, mult) in sorted(AB_INPUTS[label].items()):
             p, tables, own, slab = call[:4]
-            ring = pk.RING[p.kind]
-            bitwise = ring.tpr == 1
+            ring = pk.RING.get(p.kind)
+            # the list kernel keeps one thread a row
+            bitwise = ring is None or ring.tpr == 1
+            if ring is None:
+                # the first design stages 3 + 3 n_slots rows a tile: above
+                # 48 KB its launch takes the shared-memory opt-in branch
+                staged = 4 * p.slab_rows * p.ccol
+                print(f"  ab {label:9s} {name:11s} first design stages "
+                      f"{staged} B a tile (opt-in above {48 * 1024})",
+                      flush=True)
+                check(label != "worm" or staged > 48 * 1024,
+                      "the first spring design's launch did not take the "
+                      "shared-memory opt-in branch")
             new = pk._call(p, tables, own, slab)
             old = prev_call(p, tables, own, slab)
             torch.cuda.synchronize()
             ok, err = held_to(new, old, call, bitwise, scales, far)
-            check(ok, f"ab {label} {name}: the ring kernel differs from the "
-                  f"first design (max|diff| {err:.3e})")
+            check(ok, f"ab {label} {name}: the redesigned kernel differs "
+                  f"from the first design (max|diff| {err:.3e})")
             ts = [time_ms(f, AB_REPS) for f in (
                 lambda: prev_call(p, tables, own, slab),
                 lambda: pk._call(p, tables, own, slab),
@@ -1759,20 +1843,33 @@ def ab_phase(card, profile_steps):
             dev = [device_ms(f) for f in (
                 lambda: prev_call(p, tables, own, slab),
                 lambda: pk._call(p, tables, own, slab))]
-            pairs, bound_ms, by = pass_bound(p, tables, own, slab, far, None)
-            all_ms = pairs * PAIR_FLOPS[p.kind] / PEAK_F32_FLOPS * 1e3
+            if ring is None:
+                # the spring list's bound, the first design's beside it
+                data_work = dict(spring=int((slab[3:3 + p.n_slots] >= 0)
+                                            .sum()))
+                pairs, bound_ms, by = pass_bound(p, tables, own, slab, far,
+                                                 None)
+                all_ms = pass_bound(p, tables[:6], own, slab, far,
+                                    data_work)[1]
+                ctas = -(-p.n_pad // 256)
+                charge = "pair-form charge"
+            else:
+                pairs, bound_ms, by = pass_bound(p, tables, own, slab, far,
+                                                 None)
+                all_ms = pairs * PAIR_FLOPS[p.kind] / PEAK_F32_FLOPS * 1e3
+                ctas = p.n_blocks * p.block // ring.rows_cta
+                charge = "all-pairs charge"
             mean_t, max_t, act = tile_stats(p, tables)
-            ctas = p.n_blocks * p.block // ring.rows_cta
             print(f"  ab {label:9s} {name:11s} {p.launch_key:10s} blocks "
                   f"{p.n_blocks} ({act} with tiles: {mean_t:.2f} mean, "
                   f"{max_t} max) ccol {p.ccol}: "
                   f"{'bitwise' if bitwise else 'within tolerance'} "
                   f"(max|diff| {err:.1e}); previous {ts[0]:.4f} / "
-                  f"{ts[3]:.4f} ms ({p.n_blocks} CTAs), ring {ts[1]:.4f} / "
+                  f"{ts[3]:.4f} ms ({p.n_blocks} CTAs), new {ts[1]:.4f} / "
                   f"{ts[2]:.4f} ms ({ctas} CTAs), x{prev_ms / new_ms:.3f}; "
                   f"device {fmt_ms(dev[0])} / {fmt_ms(dev[1])} ms; "
-                  f"bound {bound_ms:.5f} ms ({by}; all-pairs charge "
-                  f"{all_ms:.5f}), bound/ring {bound_ms / new_ms:.3f} "
+                  f"bound {bound_ms:.5f} ms ({by}; {charge} "
+                  f"{all_ms:.5f}), bound/new {bound_ms / new_ms:.3f} "
                   f"(x{mult}/step) [{card}]", flush=True)
             # the fastw paths sum a kind's launches; the fast paths keep
             # each gate setting apart
@@ -1791,14 +1888,14 @@ def ab_phase(card, profile_steps):
             acc["err"] = max(acc["err"], err)
     for (label, group), a in sorted(totals.items()):
         print(f"  ab {label:9s} {group:10s} per step: previous {a['prev']:.4f}"
-              f" ms, ring {a['new']:.4f} ms (x{a['prev'] / a['new']:.3f}); "
+              f" ms, new {a['new']:.4f} ms (x{a['prev'] / a['new']:.3f}); "
               f"device {fmt_ms(a['prev_dev'])} / {fmt_ms(a['new_dev'])} ms; "
               f"bound {a['bound']:.5f} ms = {a['bound'] / a['new']:.3f} of "
-              f"the ring's time (all-pairs charge {a['all_pairs']:.5f}) "
-              f"[{card}]", flush=True)
-    for kind in pk.RING:
+              f"the new kernel's time (all-pairs or pair-form charge "
+              f"{a['all_pairs']:.5f}) [{card}]", flush=True)
+    for kind in AB_KINDS:
         a = totals[("worm", kind)]
-        print(f"  ab worm {kind}: the ring kernel "
+        print(f"  ab worm {kind}: the new kernel "
               f"{'is' if a['new'] < a['prev'] else 'is NOT'} below the "
               f"previous design a step", flush=True)
 
@@ -1816,15 +1913,21 @@ def ab_phase(card, profile_steps):
         return dict(prev_ms=a["prev"], ab_ms=a["new"],
                     prev_device_ms=a["prev_dev"], ab_device_ms=a["new_dev"],
                     ab_scope=f"in-call A/B, {label}, CUDA events around "
-                             f"{AB_REPS} launches, previous/ring/ring/"
+                             f"{AB_REPS} launches, previous/new/new/"
                              "previous",
                     registers=cur and cur["regs"],
                     prev_registers=prev and prev["regs"],
                     bound_ms_all_pairs=a["all_pairs"])
+    spring = extra("worm", "spring", "spring", False)
+    spring["launch_floor_device_ms"] = floor_ms
     return dict(kernels={}, launches={}, extra={
         "paccel": extra("worm", "paccel", "paccel", False),
         "rho_star": extra("worm", "rho_star", "rho_star", False),
-        "paccel_sub": extra("fast_worm", "paccel_s32", "paccel", True)})
+        "viscsurf": extra("worm", "viscsurf", "viscsurf", False),
+        "spring": spring,
+        "paccel_sub": extra("fast_worm", "paccel_s32", "paccel", True),
+        "viscsurf_sub": extra("fast_worm", "viscsurf_s32", "viscsurf",
+                              True)})
 
 
 # name -> phase(card, profile_steps), in running order; a phase that runs a

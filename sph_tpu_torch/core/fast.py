@@ -22,7 +22,9 @@ Differences from the JAX module:
 * the spring and membrane slab packs are buffers of the sort context, their
   per-step rows written in place (as in the port's wall-compact engine), and
   the spring activation term is a gather ``act_ext[muscle id]`` instead of
-  the one-hot matrix product: the same f32 values;
+  the one-hot matrix product: the same f32 values; the spring pass runs on
+  a list of the (column, slot) entries it matches (``pair_kernels.
+  spring_list``), built once per resort period: the same sums;
 * the time-t density and rho* launch one kernel each that fuses the clamp
   (``pair_kernels.make_density_pass``), and the density reads a 3-row
   position pack where the TPU needs the 8-row main pack.
@@ -353,6 +355,7 @@ def _make_step_parts(params: SimParams, layout: SceneLayout,
             inv_h=inv_h, h_scale=f32(params.h * params.simulation_scale),
             k_spring=f32(params.k_spring), n_slots=n_slots, **ckw),
     )
+    spring_pass = passes["spring"]
     muscle_force = float(f32(params.muscle_force))
 
     n = cfg.n_particles
@@ -508,6 +511,9 @@ def _make_step_parts(params: SimParams, layout: SceneLayout,
             own_el = own_el.reshape(nb, B).any(dim=1)
             ctx["spr_tables"] = (aln_c, lo_c, hi_c, s0_c,
                                  torch.where(own_el, cnt_c, zero), ob_t)
+            # the entries the pair form would match, once a period
+            ctx["spr_list"] = pk.spring_list(spring_pass, ctx["spr_tables"],
+                                             ctx["spr_pack"])
         elif springs.n_elastic > 0:
             # the fallback (springs anchored outside the elastic block):
             # spring ids translated to sorted rows, gathered every step
@@ -603,7 +609,7 @@ def _make_step_parts(params: SimParams, layout: SceneLayout,
             act_ext = torch.cat([act.new_zeros(1), act * muscle_force])
             spr_pack[3 + 2 * n_slots:3 + 3 * n_slots, :n_el] = act_ext[
                 ctx["spr_mid"]]
-            sfx, sfy, sfz = passes["spring"](ctx["spr_tables"], main1,
+            sfx, sfy, sfz = passes["spring"](ctx["spr_list"], main1,
                                              spr_pack)
             aex = aex + sfx
             aey = aey + sfy

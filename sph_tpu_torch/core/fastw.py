@@ -21,7 +21,10 @@ Differences from the JAX module:
   resort, the position, activation and triangle rows in place every step;
 * the per-spring activation term is a gather ``act_ext[muscle id]`` instead
   of the one-hot matrix product: the same f32 values, no matmul precision
-  mode involved.
+  mode involved;
+* the spring pass runs on a list of the (column, slot) entries it matches
+  (``pair_kernels.spring_list``), built once per resort period from the
+  spring tables and the slab's partner ids: the same sums.
 """
 from __future__ import annotations
 
@@ -336,6 +339,7 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
             k_spring=f32(params.k_spring), n_slots=layout.spring_slots,
             ccol=ccol_c, n_blocks=nb_m, **kw),
     )
+    spring_pass = passes["spring_ms"]
     n_slots = layout.spring_slots
     muscle_force = float(f32(params.muscle_force))
 
@@ -517,6 +521,9 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
             ctx["spr_tables"] = (
                 aln_c, lo_c, hi_c, s0_c,
                 torch.where(own_el, cnt_c, zero_cnt), ob_t)
+            # the entries the pair form would match, once a period
+            ctx["spr_list"] = pk.spring_list(spring_pass, ctx["spr_tables"],
+                                             pack)
 
         if membranes.n_tris > 0:
             pt = membranes.particle_tris[e0:e1].long()   # [n_el, 7]
@@ -619,7 +626,7 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
             # per-spring activation term: muscle id 0 (plain spring) -> 0
             act_ext = torch.cat([act.new_zeros(1), act * muscle_force])
             spr_pack[3 + 2 * n_slots:, :n_el] = act_ext[ctx["spr_mid"]]
-            sfx, sfy, sfz = passes["spring_ms"](ctx["spr_tables"], main1,
+            sfx, sfy, sfz = passes["spring_ms"](ctx["spr_list"], main1,
                                                 spr_pack)
             aex = aex + sfx
             aey = aey + sfy

@@ -32,10 +32,11 @@ RING_DEFINES = [f"-DSPH_{kind.upper()}_{field.upper()}={int(value)}"
                 for field, value in dataclasses.asdict(ring).items()]
 FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
          *RING_DEFINES]
-KINDS = ("density", "rho_star", "viscsurf", "paccel", "boundary", "spring",
-         "membrane")
-# the first driver's PAccel and RhoStar, for chip_smoke.py's comparison only
-PREV = ("rho_star_prev", "paccel_prev")
+# the pair-pass entry points (the spring pass's list kernel has its own)
+KINDS = ("density", "rho_star", "viscsurf", "paccel", "boundary", "membrane")
+# the first designs of the redesigned kernels, for chip_smoke.py's
+# comparison only
+PREV = ("rho_star_prev", "paccel_prev", "viscsurf_prev", "spring_prev")
 
 _lib = None
 
@@ -113,6 +114,9 @@ def load() -> ctypes.CDLL:
             fn.argtypes = [p, i64, p, i64, p, p, p, p, p, p, i32, p, i32,
                            i32, i32, f, f, f, f, i32, p]
             fn.restype = i32
+        lib.sph_pair_spring.argtypes = [p, i64, p, i64, p, p, p, p, i32, f,
+                                        f, f, f, i32, p]
+        lib.sph_pair_spring.restype = i32
         lib.sph_pack_rows.argtypes = [p, i32, i64, p, p]
         lib.sph_pack_rows.restype = i32
         lib.sph_cuda_error_string.argtypes = [i32]

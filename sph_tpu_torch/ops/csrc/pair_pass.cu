@@ -15,9 +15,12 @@
 // The plain PyTorch versions in sph_tpu_torch/ops/pair_kernels.py compute
 // the same sums and are what the kernels are checked against.
 //
-// Two drivers. pair_pass<P, Gated> (the first design) runs Density, ViscSurf,
-// Boundary, Spring and Membrane; pair_ring<P, R, TPR, STAGES, ROWS_CTA, Exit,
-// Gated> runs RhoStar and PAccel. The functors below are shared by both.
+// Two drivers and a list kernel. pair_pass<P, Gated> (the first design)
+// runs Density, Boundary and Membrane; pair_ring<P, R, TPR, STAGES,
+// ROWS_CTA, Exit, Gated> runs RhoStar, ViscSurf and PAccel; spring_list runs
+// Spring. The functors below are shared by the drivers, and pair_pass keeps
+// the first designs of the four redesigned kernels for chip_smoke.py's
+// comparison (the sph_pair_<kind>_prev entry points).
 //
 // pair_pass: one CTA per own block, one thread per own row (blockDim =
 // block).
@@ -40,34 +43,48 @@
 // Shared memory per CTA = slab rows x ccol x 4 B, one tile, dynamic. The
 // five liquid passes stage 3-7 rows (at most 7 x 512 x 4 B = 14 KB).
 // Membrane stages 45 of its pack's 48 rows (the x(t) rows are not read):
-// 45 x 256 x 4 B = 46,080 B, under the 48 KB default. Spring stages
-// 3 + 3 * n_slots rows, a scene property passed at run time: 51 rows x 256
-// x 4 B = 52,224 B at 16 slots (the worm), 101,376 B at 32; above 48 KB the
-// launcher opts in with cudaFuncAttributeMaxDynamicSharedMemorySize (the
-// card allows 227 KB a CTA).
+// 45 x 256 x 4 B = 46,080 B, under the 48 KB default. Spring's first
+// design stages 3 + 3 * n_slots rows, a scene property passed at run time:
+// 51 rows x 256 x 4 B = 52,224 B at 16 slots (the worm), 101,376 B at 32;
+// above 48 KB the launcher opts in with
+// cudaFuncAttributeMaxDynamicSharedMemorySize (the card allows 227 KB a
+// CTA).
 //
-// What bounds it on this card: pair arithmetic, for all seven. A moving row
-// meets ~1.6k candidate columns per liquid pass (~13-29 flops each; Density
-// 13, as RhoStar: its epilogue is one clamp a row, fused into store); slab
-// bytes are reused from shared memory by all 256 rows of the block, so
-// device-memory traffic is small. Spring compares the own row's sorted id
-// with each column's n_slots partner ids (4 operations a slot, ~90 a pair
-// at 16 slots); it sums only matching pairs, which are rare, so its time is
-// the id compares. Membrane tests the distance first (10 flops a pair) and
-// runs the 7-triangle side test (~170 flops) only within r0 of the column,
-// where the weight is nonzero: the sums are unchanged, every skipped term
-// is w = 0. In this driver the loads of a tile are not overlapped with the
-// compute of the previous one and every field is read as a scalar.
+// What bounds it on this card: pair arithmetic. A moving row meets ~1.6k
+// candidate columns per liquid pass (~13-29 flops each; Density 13, as
+// RhoStar: its epilogue is one clamp a row, fused into store); slab bytes
+// are reused from shared memory by all 256 rows of the block, so
+// device-memory traffic is small. Membrane tests the distance first (10
+// flops a pair) and runs the 7-triangle side test (~170 flops) only within
+// r0 of the column, where the weight is nonzero: the sums are unchanged,
+// every skipped term is w = 0. In this driver the loads of a tile are not
+// overlapped with the compute of the previous one and every field is read
+// as a scalar.
 //
-// pair_ring, for the two kernels that take most of a step (PAccel 6 and
-// RhoStar 12 launches a fastw worm step). What held them back in
-// pair_pass: (1) on the worm's launch shapes (510 and ~208 blocks of 256
-// rows, 3-4 tiles each) one CTA a block leaves the card in one partial
-// wave set by its heaviest blocks; (2) one scalar LDS a field a pair (5
-// against ~25 FP32 instructions in PAccel, 3 against ~10 in RhoStar) takes
-// issue slots from the FP32 pipe that bounds them; (3) tiles staged by
-// plain loads and two barriers, not overlapped with compute; (4) PAccel
-// ran its force body for every candidate pair, ~97 % of them beyond h. The
+// spring_list (Spring). As a pair pass Spring compared the own row's
+// sorted id with each candidate column's n_slots partner ids (~90
+// operations a pair at 16 slots) to find the worm's 137,804 slot entries
+// among ~10^8 candidate pairs: its time was the id compares. The list
+// (ops/pair_kernels.py spring_list, built once per resort period) holds
+// only the entries that match, a CSR over the own rows in the order the
+// pair pass meets them (tile, column, slot), so the kernel's work is
+// O(springs): one thread a row walks its entries, merges consecutive
+// entries of one column and adds Spring::term, the code the pair pass runs
+// for a matched column. Same pairs, same order, same expressions: its sums
+// are bitwise the pair pass's. Bound: bytes, the entries (4 B), their
+// rest and activation terms and the columns' positions, row_ptr and the
+// outputs: a few MB, a few microseconds, so its time is the launch's.
+//
+// pair_ring, for the liquid kernels that take most of a step (PAccel 6,
+// RhoStar 12 and ViscSurf 2 launches a fastw worm step). What held them
+// back in pair_pass: (1) on the worm's launch shapes (510 and ~208 blocks
+// of 256 rows, 3-4 tiles each) one CTA a block leaves the card in one
+// partial wave set by its heaviest blocks; (2) one scalar LDS a field a
+// pair (5 against ~25 FP32 instructions in PAccel, 3 against ~10 in
+// RhoStar, 7 in ViscSurf) takes issue slots from the FP32 pipe that bounds
+// them; (3) tiles staged by plain loads and two barriers, not overlapped
+// with compute; (4) PAccel and ViscSurf ran their bodies (and ViscSurf its
+// IEEE sqrtf) for every candidate pair, ~97 % of them beyond h. The
 // design:
 //  * a ring of STAGES tiles in dynamic shared memory, each filled by one
 //    thread with one 1-D bulk copy (cp.async.bulk, the TMA) a slab row and
@@ -79,7 +96,8 @@
 //    are multiples of ALIGN = 128 by construction);
 //  * each field is read as a float4 over 4 consecutive columns (a warp
 //    broadcast), and a thread may hold R own rows, so one LDS.128 feeds
-//    4 R pairs: NF / (4 R) shared loads a pair (PAccel NF = 5, RhoStar 3);
+//    4 R pairs: NF / (4 R) shared loads a pair (PAccel NF = 5, RhoStar 3,
+//    ViscSurf 7);
 //  * a row may be split over TPR threads (part q takes the row's 4-column
 //    groups q, q + TPR, ...) whose partial sums are added at the end in a
 //    fixed order (shuffles: pairs, then pairs of pairs), so more warps are
@@ -88,9 +106,10 @@
 //  * a CTA takes ROWS_CTA rows of a block, not the whole block (block /
 //    ROWS_CTA CTAs a block, each streaming the block's tiles), so the
 //    worm's launches give several CTAs an SM and the load evens out;
-//  * PAccel's early exit (Exit) skips the force body where tt = 0 and
-//    cm <= 0 as computed, where every term is an exact zero, so the sums
-//    are unchanged; the distance test still runs for every pair.
+//  * the early exits (Exit) skip a pair's body where every term is an
+//    exact zero, so the sums are unchanged: PAccel's where tt = 0 and
+//    cm <= 0 as computed, ViscSurf's where r2 >= reach, before the sqrtf;
+//    the distance test still runs for every pair.
 // Each row meets its tiles in table order and each thread its columns in
 // ascending order, adding the functor's f32 expressions as written. With
 // TPR 1 a row's sums are bitwise those of pair_pass; with TPR > 1 they
@@ -98,7 +117,8 @@
 // the split (chip_smoke.py holds them to the kernel tolerance). Stages, R,
 // TPR, ROWS_CTA and Exit were chosen by timing a matrix of them on the card
 // (PERF.md): R 1-2, TPR 4 and 64 rows a CTA won on the worm's launches, R 4
-// spilled and lost. The shipped values are owned by ops/pair_kernels.py
+// spilled and lost (ViscSurf: its own matrix, PERF.md). The shipped values
+// are owned by ops/pair_kernels.py
 // (RING) and reach this file as -DSPH_<KIND>_<FIELD> defines from
 // ops/_build.py.
 //
@@ -204,30 +224,41 @@ struct RhoStar {
 
 struct ViscSurf {
   // slab rows: x, y, z, vx, vy, vz, 1/rho
-  __host__ __device__ constexpr int slab_rows() const { return 7; }
+  static constexpr int kRows = 7;
+  __host__ __device__ constexpr int slab_rows() const { return kRows; }
   struct Own { float x, y, z, vx, vy, vz; };
   struct Acc { float vx, vy, vz, sx, sy, sz; };
-  float h, h2, inv_h;
+  // reach: the least f32 r2 at which both terms are exact zeros,
+  // max(h2, the least t with sqrtf(t) >= h) (ops/pair_kernels.py)
+  float h, h2, inv_h, reach;
 
   __device__ Own load(const float* own, long long w, long long i) const {
     return {own[i], own[w + i], own[2 * w + i],
             own[3 * w + i], own[4 * w + i], own[5 * w + i]};
   }
-  __device__ void pair(const Own& o, const float* t, int ccol, int j,
-                       Acc& a) const {
-    const float dx = o.x - t[j];
-    const float dy = o.y - t[ccol + j];
-    const float dz = o.z - t[2 * ccol + j];
+  // Exit: skip the pair before its sqrtf where r2 >= reach: there
+  // h - sqrtf(r2) <= 0 (sqrtf is correctly rounded, so monotone) and not
+  // r2 < h2, so both terms are exact zeros and the sums are unchanged
+  template <bool Exit, class T>
+  __device__ void pair_at(const Own& o, const T& t, Acc& a) const {
+    const float dx = o.x - t(0);
+    const float dy = o.y - t(1);
+    const float dz = o.z - t(2);
     const float r2 = dx * dx + dy * dy + dz * dz;
-    const float wv = fmaxf(h - sqrtf(r2), 0.0f) * t[6 * ccol + j];
-    a.vx += wv * (t[3 * ccol + j] - o.vx);
-    a.vy += wv * (t[4 * ccol + j] - o.vy);
-    a.vz += wv * (t[5 * ccol + j] - o.vz);
+    if (Exit && r2 >= reach) return;
+    const float wv = fmaxf(h - sqrtf(r2), 0.0f) * t(6);
+    a.vx += wv * (t(3) - o.vx);
+    a.vy += wv * (t(4) - o.vy);
+    a.vz += wv * (t(5) - o.vz);
     if (r2 < h2) {
       a.sx += dx;
       a.sy += dy;
       a.sz += dz;
     }
+  }
+  __device__ void pair(const Own& o, const float* t, int ccol, int j,
+                       Acc& a) const {
+    pair_at<false>(o, TileCol{t, ccol, j}, a);
   }
   __device__ void store(float* out, long long n, long long i,
                         const Acc& a) const {
@@ -331,6 +362,7 @@ struct Spring {
   __device__ Own load(const float* own, long long w, long long i) const {
     return {own[i], own[w + i], own[2 * w + i], (float)i};
   }
+  // the pair pass (the first design, kept for chip_smoke.py's comparison)
   __device__ void pair(const Own& o, const float* t, int ccol, int j,
                        Acc& a) const {
     float msum = 0.0f, rest = 0.0f, actf = 0.0f;
@@ -344,9 +376,16 @@ struct Spring {
       }
     }
     if (!(msum > 0.0f)) return;
-    const float dx = o.x - t[j];
-    const float dy = o.y - t[ccol + j];
-    const float dz = o.z - t[2 * ccol + j];
+    term(o, t[j], t[ccol + j], t[2 * ccol + j], msum, rest, actf, a);
+  }
+  // one (own row, column) term, the column's matched slots summed; the
+  // pair pass and the list kernel share it, so nvcc contracts the same FMAs
+  __device__ __forceinline__ void term(const Own& o, float xj, float yj,
+                                       float zj, float msum, float rest,
+                                       float actf, Acc& a) const {
+    const float dx = o.x - xj;
+    const float dy = o.y - yj;
+    const float dz = o.z - zj;
     const float q2 = (dx * dx + dy * dy + dz * dz) * inv_h_sq;
     if (!(q2 > 0.0f)) return;
     const float inv_q = rsqrtf(fmaxf(q2, 1e-30f));
@@ -502,7 +541,55 @@ int launch(const P& p, const float* own, long long own_w, const float* slab,
 
 
 // ---------------------------------------------------------------------------
-// The ring driver (RhoStar, PAccel; see the header comment)
+// The spring list kernel (see the header comment)
+// ---------------------------------------------------------------------------
+
+// One own row a thread: the row's entries row_ptr[i] .. row_ptr[i+1] - 1
+// (entry j * n_slots + s: slot s of slab column j), consecutive entries of
+// one column merged (their slots summed in slot order, as Spring::pair sums
+// the slots that match), one term a column, in the list's order: the pair
+// pass's. Entries outside the slab's slots are skipped.
+__global__ void __launch_bounds__(256)
+spring_list(Spring p, const float* __restrict__ own, long long own_w,
+            const float* __restrict__ slab, long long slab_w,
+            const int* __restrict__ row_ptr, const int* __restrict__ ent,
+            const int* __restrict__ ob, float* __restrict__ out, int n_pad) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_pad) return;
+  const long long row = (long long)ob[0] + i;
+  Spring::Acc acc{};
+  if (row >= 0 && row < own_w) {
+    const Spring::Own o = p.load(own, own_w, row);
+    const int n = p.n_slots;
+    const long long cap = (long long)n * slab_w;
+    int e = row_ptr[i];
+    const int end = row_ptr[i + 1];
+    while (e < end) {
+      const int v = ent[e];
+      if (v < 0 || v >= cap) {
+        ++e;
+        continue;
+      }
+      const int j = v / n;
+      const int lo = j * n;
+      float msum = 0.0f, rest = 0.0f, actf = 0.0f;
+      int w = v;
+      do {
+        const long long s = w - lo;
+        msum += 1.0f;
+        rest += slab[(3 + n + s) * slab_w + j];
+        actf += slab[(3 + 2 * n + s) * slab_w + j];
+        ++e;
+      } while (e < end && (w = ent[e]) >= lo && w < lo + n);
+      p.term(o, slab[j], slab[slab_w + j], slab[2 * slab_w + j], msum, rest,
+             actf, acc);
+    }
+  }
+  p.store(out, n_pad, i, acc);
+}
+
+// ---------------------------------------------------------------------------
+// The ring driver (RhoStar, ViscSurf, PAccel; see the header comment)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -753,7 +840,8 @@ int launch_ring(const P& p, const float* own, long long own_w,
 // The shipped configuration of a ring kind, from ops/pair_kernels.py RING
 // (the -DSPH_<KIND>_<FIELD> defines of ops/_build.py): R, TPR, STAGES,
 // ROWS_CTA, Exit.
-#if !defined(SPH_RHO_STAR_ROWS) || !defined(SPH_PACCEL_ROWS)
+#if !defined(SPH_RHO_STAR_ROWS) || !defined(SPH_VISCSURF_ROWS) || \
+    !defined(SPH_PACCEL_ROWS)
 #error "build with the ring defines of sph_tpu_torch/ops/_build.py"
 #endif
 #define SPH_RING(K)                                                          \
@@ -790,7 +878,9 @@ int sph_pair_rho_star(SPH_PAIR_ARGS) {
 }
 
 int sph_pair_viscsurf(SPH_PAIR_ARGS) {
-  return SPH_GATED((ViscSurf{c0, c1, c2}));
+  const ViscSurf p{c0, c1, c2, c3};
+  return sub != 0 ? launch_ring<SPH_RING(VISCSURF), true>(p, SPH_PAIR_FWD)
+                  : launch_ring<SPH_RING(VISCSURF), false>(p, SPH_PAIR_FWD);
 }
 
 int sph_pair_paccel(SPH_PAIR_ARGS) {
@@ -799,8 +889,9 @@ int sph_pair_paccel(SPH_PAIR_ARGS) {
                   : launch_ring<SPH_RING(PACCEL), false>(p, SPH_PAIR_FWD);
 }
 
-// pair_pass for the two kinds the ring driver took over, kept for
-// chip_smoke.py's in-call comparison; no wrapper or engine calls these.
+// pair_pass for the kinds the ring driver and the spring list took over,
+// kept for chip_smoke.py's in-call comparison; no wrapper or engine calls
+// these.
 int sph_pair_rho_star_prev(SPH_PAIR_ARGS) {
   return SPH_UNGATED(RhoStar{c0});
 }
@@ -809,12 +900,31 @@ int sph_pair_paccel_prev(SPH_PAIR_ARGS) {
   return SPH_GATED((PAccel{c0, c1, c2, c3}));
 }
 
+int sph_pair_viscsurf_prev(SPH_PAIR_ARGS) {
+  return SPH_GATED((ViscSurf{c0, c1, c2, c3}));
+}
+
+int sph_pair_spring_prev(SPH_PAIR_ARGS) {
+  return SPH_UNGATED((Spring{c0, c1, c2, c3, i0}));
+}
+
 int sph_pair_boundary(SPH_PAIR_ARGS) {
   return SPH_UNGATED((Boundary{c0, c1}));
 }
 
-int sph_pair_spring(SPH_PAIR_ARGS) {
-  return SPH_UNGATED((Spring{c0, c1, c2, c3, i0}));
+// the spring pass on its list (ops/pair_kernels.py spring_list): row_ptr
+// [n_pad + 1], ent [n_slots * slab_w]
+int sph_pair_spring(const float* own, long long own_w, const float* slab,
+                    long long slab_w, const int* row_ptr, const int* ent,
+                    const int* ob, float* out, int n_pad, float c0, float c1,
+                    float c2, float c3, int n_slots, void* stream) {
+  if (n_pad <= 0) return (int)cudaGetLastError();
+  if (n_slots < 1) return (int)cudaErrorInvalidValue;
+  constexpr int nthr = 256;
+  spring_list<<<(n_pad + nthr - 1) / nthr, nthr, 0, (cudaStream_t)stream>>>(
+      Spring{c0, c1, c2, c3, n_slots}, own, own_w, slab, slab_w, row_ptr,
+      ent, ob, out, n_pad);
+  return (int)cudaGetLastError();
 }
 
 int sph_pair_membrane(SPH_PAIR_ARGS) {

@@ -40,13 +40,21 @@ tensors it launches the kernel (``csrc/pair_pass.cu``) or raises. Each kernel
 launch adds one to ``LAUNCHES[kind]``, a gated one to ``LAUNCHES[kind +
 "_sub"]``.
 
-The rho* (raw) and pressure-force kernels run on the ring driver
-(``pair_ring`` in ``csrc/pair_pass.cu``) in the configuration ``RING``
-gives: their slab tiles are copied into a ring of shared-memory stages by
-16-byte bulk copies, so their slab pack must start on a 16-byte boundary
-and have a width that is a multiple of 4, ``ccol`` and every tile offset
-(``aln``) must be multiples of 4, and a CTA's ``rows_cta`` must divide
-``block`` (``_check``).
+The rho* (raw), viscosity/surface and pressure-force kernels run on the
+ring driver (``pair_ring`` in ``csrc/pair_pass.cu``) in the configuration
+``RING`` gives: their slab tiles are copied into a ring of shared-memory
+stages by 16-byte bulk copies, so their slab pack must start on a 16-byte
+boundary and have a width that is a multiple of 4, ``ccol`` and every tile
+offset (``aln``) must be multiples of 4, and a CTA's ``rows_cta`` must
+divide ``block`` (``_check``).
+
+The spring pass runs on a list, not on tiles: ``spring_list`` (once per
+resort period) turns the tile tables and the partner ids of the spring
+slab into a CSR over the own rows of the (column, slot) entries that the
+pair pass would match, in the order it meets them. The pass then takes the
+8-tuple ``spring_list`` returns (the 6-tuple plus ``row_ptr``, ``ent``);
+its kernel reads only the list. On the bare 6-tuple its plain version is
+the pair form, the oracle the list is held to.
 """
 from __future__ import annotations
 
@@ -135,6 +143,7 @@ class Ring:
 
 # kinds on the ring driver -> their configuration
 RING = {"rho_star": Ring(rows=2, tpr=4, stages=2, rows_cta=64),
+        "viscsurf": Ring(rows=1, tpr=4, stages=2, rows_cta=64, exit=True),
         "paccel": Ring(rows=1, tpr=4, stages=2, rows_cta=64, exit=True)}
 
 
@@ -192,8 +201,11 @@ class PairPass:
 
     @property
     def shared_bytes(self) -> int:
-        """Dynamic shared memory of one kernel launch: one staged tile, or
-        on the ring driver its ring of ``RING[kind].stages`` tiles."""
+        """Dynamic shared memory of one kernel launch: one staged tile, on
+        the ring driver its ring of ``RING[kind].stages`` tiles, none for
+        the spring list kernel."""
+        if self.kind == "spring":
+            return 0
         ring = RING.get(self.kind)
         return 4 * self.slab_rows * self.ccol * (ring.stages if ring else 1)
 
@@ -281,16 +293,36 @@ def make_rho_star_pass(*, block, ccol, n_blocks, inv_h2, c_rho, raw=False,
     return PairPass("rho_star", block, ccol, n_blocks, (float(h2),), sub=sub)
 
 
+def sqrt_reach(h) -> np.float32:
+    """The least f32 t with sqrtf(t) >= h. f32 sqrt is correctly rounded,
+    hence monotone: every r2 >= t has sqrtf(r2) >= h, every r2 below has
+    sqrtf(r2) < h."""
+    h = np.float32(h)
+    t = np.float32(h * h)
+    while np.sqrt(t) >= h:
+        t = np.nextafter(t, np.float32(0.0))
+    while np.sqrt(t) < h:
+        t = np.nextafter(t, np.float32(np.inf))
+    return t
+
+
 def make_viscsurf_pass(*, block, ccol, n_blocks, inv_h2, sub=None, **_):
     """Viscosity + surface-tension sums over the main pack: (vx, vy, vz) =
     sum max(h - r, 0) * (1/rho_j) * (v_j - v_i) / h, (sx, sy, sz) =
     sum_{r < h} (x_i - x_j). Wall columns carry their normal as v; the
-    PM_RHO row carries 1/rho."""
+    PM_RHO row carries 1/rho.
+
+    The fourth constant is the kernel's exact early exit: at r2 >=
+    max(h^2, sqrt_reach(h)) both terms are exact zeros (h - sqrtf(r2) <= 0
+    and not r2 < h^2), so the pair is skipped before its sqrtf. h^2 alone
+    is no safe bound: h and h^2 are rounded apart."""
     h = np.float32(1.0) / np.float32(np.sqrt(inv_h2))
     h2 = np.float32(1.0) / np.float32(inv_h2)
     inv_h = np.float32(np.sqrt(inv_h2))
+    reach = max(h2, sqrt_reach(h))
     return PairPass("viscsurf", block, ccol, n_blocks,
-                    (float(h), float(h2), float(inv_h)), sub=sub)
+                    (float(h), float(h2), float(inv_h), float(reach)),
+                    sub=sub)
 
 
 def make_paccel_pass(*, block, ccol, n_blocks, inv_h2, inv_h, rho0_delta,
@@ -330,7 +362,8 @@ def make_spring_pass(*, block, ccol, n_blocks, inv_h, h_scale, k_spring,
     included whenever its partner column lies in the block's tiles.
 
     Own pack: positions at rows 0-2 (the main pack). Slab: ``spr_cols``
-    rows. Row ids are compared as f32, exact below 2^24 rows."""
+    rows. Row ids are compared as f32, exact below 2^24 rows. The pass
+    takes the 8-tuple of ``spring_list`` (see the module docstring)."""
     if n_blocks * block + ccol >= 1 << 24:
         raise ValueError(
             f"spring pass: {n_blocks * block} own rows do not compare "
@@ -378,7 +411,7 @@ def _rho_star_pairs(p, o, s, valid, gid, scale):
 
 
 def _viscsurf_pairs(p, o, s, valid, gid, scale):
-    h, h2, inv_h = p.consts
+    h, h2, inv_h = p.consts[:3]
     dx, dy, dz = o[0] - s[0], o[1] - s[1], o[2] - s[2]
     r2 = dx * dx + dy * dy + dz * dz
     t = torch.clamp(h - torch.sqrt(r2), min=0.0)
@@ -417,27 +450,34 @@ def _boundary_pairs(p, o, s, valid, gid, scale):
         _sum(w, scale), _sum(w * (r0 - dist), scale)]
 
 
-def _spring_pairs(p, o, s, valid, gid, scale):
+def _spring_weight(p, dx, dy, dz, msum, rest, actf, scale):
+    """The spring term's weight w (force = w * (x_i - x_j)) of pairs whose
+    matched slots sum to ``msum``, ``rest``, ``actf``; 0 unless msum > 0
+    and q2 > 0."""
     inv_h, inv_h_sq, h_scale, k_spring = p.consts
-    n = p.n_slots
-    dx, dy, dz = o[0] - s[0], o[1] - s[1], o[2] - s[2]
     q2 = (dx * dx + dy * dy + dz * dz) * inv_h_sq
-    msum = torch.zeros_like(q2)
-    rest = torch.zeros_like(q2)
-    actf = torch.zeros_like(q2)
-    for k in range(n):
-        m = (s[SPR_IDX0 + k] == gid).to(q2.dtype)
-        msum = msum + m
-        rest = rest + m * s[SPR_IDX0 + n + k]
-        actf = actf + m * s[SPR_IDX0 + 2 * n + k]
     inv_q = torch.rsqrt(torch.clamp(q2, min=1e-30))
     r_m = q2 * inv_q * h_scale
     if scale:                    # r - rest cancels too: ulps of the lengths
         coef = (r_m * msum + rest.abs()) * k_spring + actf.abs()
     else:
         coef = -(r_m * msum - rest) * k_spring - actf
-    ok = valid & (msum > 0.0) & (q2 > 0.0)
-    w = torch.where(ok, coef * inv_q * inv_h, 0.0)
+    return torch.where((msum > 0.0) & (q2 > 0.0), coef * inv_q * inv_h, 0.0)
+
+
+def _spring_pairs(p, o, s, valid, gid, scale):
+    n = p.n_slots
+    dx, dy, dz = o[0] - s[0], o[1] - s[1], o[2] - s[2]
+    msum = torch.zeros_like(dx)
+    rest = torch.zeros_like(dx)
+    actf = torch.zeros_like(dx)
+    for k in range(n):
+        m = (s[SPR_IDX0 + k] == gid).to(dx.dtype)
+        msum = msum + m
+        rest = rest + m * s[SPR_IDX0 + n + k]
+        actf = actf + m * s[SPR_IDX0 + 2 * n + k]
+    w = torch.where(valid, _spring_weight(p, dx, dy, dz, msum, rest, actf,
+                                          scale), 0.0)
     return [_sum(w * d, scale) for d in (dx, dy, dz)]
 
 
@@ -511,7 +551,10 @@ def _group_gate(p: PairPass, tables, blocks, off):
 def _plain(p: PairPass, tables, own, slab, scale=False):
     """Sum over each block's tiles: pair matrices gathered per chunk of
     blocks (blocks without tiles skipped), with none of the TPU driver's
-    static tile caps. ``scale``: the sums' rounding scale instead."""
+    static tile caps; the spring pass on its list (8-tuple) sums over the
+    list. ``scale``: the sums' rounding scale instead."""
+    if p.kind == "spring" and len(tables) == 8:
+        return _spring_list_sums(p, tables, own, slab, scale)
     n_out = _rows(p)[0]
     out = torch.zeros((n_out, p.n_blocks, p.block), dtype=own.dtype,
                       device=own.device)
@@ -564,16 +607,113 @@ def pair_chunks(p: PairPass, tables, own, slab):
 
 
 # ---------------------------------------------------------------------------
+# the spring pass's list
+# ---------------------------------------------------------------------------
+
+def spring_list(p: PairPass, tables, slab):
+    """The spring pass's 8-tuple: ``tables`` (the 6-tuple) plus a CSR over
+    the own rows of the spring entries the pair pass would match:
+    ``row_ptr`` int32 [n_pad + 1] and ``ent`` int32 [n_slots * width]
+    (width: the spring slab's), entry ``j * n_slots + s`` for slot s of
+    slab column j.
+
+    Slot s of column j lists partner id g (slab row ``SPR_IDX0 + s``): the
+    entry belongs to own row i = g - ob when g is an integer with 0 <= i <
+    n_pad and column j lies in a tile that i's block streams (tile t < cnt,
+    at column aln[c] + (t - s0[c]) * ccol of chunk c, as the pair pass
+    reads the tables; the tiles of a block are disjoint, so there is at
+    most one). Entries are built from the columns' lists (j -> i), never
+    from i's own, so no symmetry is assumed. Each row's entries are in the
+    order the pair pass meets them: tile (chunk) order, column, slot.
+
+    Shape-static and free of host syncs: the shapes depend only on
+    (n_slots, width, n_pad); dropped entries sort to the end under a
+    sentinel key (``row_ptr[n_pad]`` counts the kept ones). Run once per
+    resort period: the ids, and so the list, are fixed between sorts."""
+    if p.kind != "spring":
+        raise ValueError(f"spring_list of a {p.kind} pass")
+    n, width = p.n_slots, slab.shape[1]
+    span = 3 * width * n                       # key range of one own row
+    if (p.n_pad + 1) * span >= 1 << 62 or width * n >= 1 << 31:
+        raise ValueError(f"spring_list: {p.n_pad} rows x {width} columns x "
+                         f"{n} slots overflow the list's keys")
+    dev = slab.device
+    aln, _, _, s0, cnt, ob = (t.long() for t in tables[:6])
+    ids = slab[SPR_IDX0:SPR_IDX0 + n]                       # [n, width]
+    g = ids.long()
+    i = g - ob
+    ok = (ids >= 0) & (ids == g.to(ids.dtype)) & (i >= 0) & (i < p.n_pad)
+    i = torch.where(ok, i, 0)
+    b = i // p.block
+    b3 = 3 * b
+    j = torch.arange(width, device=dev)
+    # the chunk (0-2) whose tile of i's block holds column j, else 3. A
+    # tile's chunk is nondecreasing in its index, so chunk order, then
+    # column, is the pair pass's tile order, then column
+    chunk = torch.full_like(i, 3)
+    for k in (2, 1, 0):
+        c = b3 + k
+        t = s0[c] + torch.div(j - aln[c], p.ccol, rounding_mode="floor")
+        in_c = b3 + (t >= s0[b3 + 1]).long() + (t >= s0[b3 + 2]).long()
+        hit = (in_c == c) & (t >= 0) & (t < cnt[b])
+        chunk = torch.where(hit, k, chunk)
+    slot = torch.arange(n, device=dev)[:, None]
+    key = ((i * 3 + chunk) * width + j) * n + slot
+    key = torch.where(ok & (chunk < 3), key, p.n_pad * span)
+    key = torch.sort(key.reshape(-1)).values
+    bounds = torch.arange(p.n_pad + 1, device=dev) * span
+    row_ptr = torch.searchsorted(key, bounds, out_int32=True)
+    ent = (key % (width * n)).to(torch.int32)
+    return tuple(tables[:6]) + (row_ptr, ent)
+
+
+def _spring_list_sums(p: PairPass, tables, own, slab, scale):
+    """The spring pass's sums over its list (the 8-tuple of
+    ``spring_list``): consecutive entries of one row and column merged
+    (msum, rest, actf summed over their slots), one term a merged column,
+    summed into its row. Host syncs: the merged columns are counted."""
+    n = p.n_slots
+    row_ptr, ent = tables[6].long(), tables[7].long()
+    dev = own.device
+    e = torch.arange(ent.shape[0], device=dev)
+    row = torch.searchsorted(row_ptr, e, right=True) - 1
+    keep = e < row_ptr[-1]
+    row, ent = row[keep], ent[keep]
+    j, s = ent // n, ent % n
+    new = torch.ones_like(row, dtype=torch.bool)
+    new[1:] = (row[1:] != row[:-1]) | (j[1:] != j[:-1])
+    grp = torch.cumsum(new, 0) - 1
+    first = torch.nonzero(new).reshape(-1)
+    g_row, g_col = row[first], j[first]
+
+    def seg(v):
+        return torch.zeros(first.shape[0], dtype=own.dtype,
+                           device=dev).index_add_(0, grp, v)
+
+    msum = seg(torch.ones_like(j, dtype=own.dtype))
+    rest = seg(slab[SPR_IDX0 + n + s, j])
+    actf = seg(slab[SPR_IDX0 + 2 * n + s, j])
+    orow = tables[5].long()[0] + g_row
+    live = (orow >= 0) & (orow < own.shape[1])
+    orow = torch.where(live, orow, 0)
+    d = [own[k, orow] - slab[k, g_col] for k in range(3)]
+    w = torch.where(live, _spring_weight(p, *d, msum, rest, actf, scale),
+                    0.0)
+    out = []
+    for dk in d:
+        t = w * dk
+        out.append(torch.zeros(p.n_pad, dtype=own.dtype, device=dev)
+                   .index_add_(0, g_row, t.abs() if scale else t))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
 def _check(p: PairPass, tables, own, slab):
     n_out, own_rows, slab_rows = _rows(p)
     dev = own.device
-    n_tab = 8 if p.gated else 6
-    if len(tables) != n_tab:
-        raise ValueError(f"{p.kind}: expected the {n_tab}-tuple tables, "
-                         f"got {len(tables)}")
     for name, a, rows in (("own", own, own_rows), ("slab", slab, slab_rows)):
         if a.device != dev or a.dtype != torch.float32 or a.dim() != 2:
             raise ValueError(f"{p.kind}: {name} pack must be a 2-D f32 "
@@ -587,9 +727,15 @@ def _check(p: PairPass, tables, own, slab):
     if own.shape[1] < p.n_pad:
         raise ValueError(f"{p.kind}: own pack width {own.shape[1]} < "
                          f"n_blocks*block {p.n_pad}")
+    n_tab = 8 if p.gated or p.kind == "spring" else 6
+    if len(tables) != n_tab:
+        raise ValueError(f"{p.kind}: expected the {n_tab}-tuple tables, "
+                         f"got {len(tables)}")
     sizes = (3 * p.n_blocks, None, None, 3 * p.n_blocks, p.n_blocks, 1)
     if p.gated:
         sizes += (3 * p.n_blocks * (p.block // p.sub),) * 2
+    if p.kind == "spring":             # the list: row_ptr, ent
+        sizes += (p.n_pad + 1, p.n_slots * slab.shape[1])
     for i, (t, n) in enumerate(zip(tables, sizes)):
         if n is None:
             continue
@@ -601,6 +747,17 @@ def _check(p: PairPass, tables, own, slab):
     if not (32 <= p.block <= 1024 and p.block % 32 == 0):
         raise ValueError(f"{p.kind}: block {p.block} is not a multiple of "
                          "32 in [32, 1024]")
+    if p.kind == "spring" and tables[6].device.type == "cpu":
+        # the list's invariants, where reading them costs no host sync
+        # (on the card the kernel skips entries outside the slab)
+        row_ptr, ent = tables[6], tables[7]
+        if not (int(row_ptr[0]) == 0 and bool((row_ptr[1:] >= row_ptr[:-1])
+                                              .all())
+                and int(row_ptr[-1]) <= ent.shape[0]
+                and bool(((ent >= 0) & (ent < ent.shape[0])).all())):
+            raise ValueError(f"{p.kind}: a malformed list: row_ptr must "
+                             "rise from 0 to at most the entries' capacity, "
+                             "entries must address the slab's slots")
     ring = RING.get(p.kind)
     if ring is None:
         return
@@ -640,19 +797,25 @@ def _call(p: PairPass, tables, own, slab, entry=None):
     out = torch.empty((n_out, p.n_pad), dtype=torch.float32,
                       device=own.device)
     aln, _, _, s0, cnt, ob = tables[:6]
-    # the gate's windows, or null pointers and sub 0: the ungated kernel
-    glo, ghi = ((t.data_ptr() for t in tables[6:8]) if p.gated
-                else (None, None))
     consts = (list(p.consts) + [0.0] * 4)[:4]
     with torch.cuda.device(own.device):
         stream = torch.cuda.current_stream(own.device).cuda_stream
-        err = getattr(lib, entry or "sph_pair_" + p.kind)(
-            own.data_ptr(), own.shape[1], slab.data_ptr(), slab.shape[1],
-            aln.data_ptr(), s0.data_ptr(), cnt.data_ptr(), ob.data_ptr(),
-            glo, ghi, p.sub if p.gated else 0,
-            out.data_ptr(), p.n_blocks, p.block, p.ccol, *consts, p.n_slots,
-            stream,
-        )
+        if p.kind == "spring" and entry is None:      # the list kernel
+            err = lib.sph_pair_spring(
+                own.data_ptr(), own.shape[1], slab.data_ptr(), slab.shape[1],
+                tables[6].data_ptr(), tables[7].data_ptr(), ob.data_ptr(),
+                out.data_ptr(), p.n_pad, *consts, p.n_slots, stream)
+        else:
+            # the gate's windows, or null pointers and sub 0: ungated
+            glo, ghi = ((t.data_ptr() for t in tables[6:8]) if p.gated
+                        else (None, None))
+            err = getattr(lib, entry or "sph_pair_" + p.kind)(
+                own.data_ptr(), own.shape[1], slab.data_ptr(), slab.shape[1],
+                aln.data_ptr(), s0.data_ptr(), cnt.data_ptr(), ob.data_ptr(),
+                glo, ghi, p.sub if p.gated else 0,
+                out.data_ptr(), p.n_blocks, p.block, p.ccol, *consts,
+                p.n_slots, stream,
+            )
     if err:
         raise RuntimeError(f"{p.kind} kernel launch failed: "
                            f"{_build.error_string(err)} ({err})")

@@ -27,7 +27,7 @@ from sph_tpu.scene import generate_worm_scene as j_worm
 from sph_tpu.scene import native
 from sph_tpu.scene.scene import Scene as JScene
 
-from sph_tpu_torch.constants import MAX_NEIGHBORS
+from sph_tpu_torch.constants import MAX_NEIGHBORS, MUSCLE_COUNT
 from sph_tpu_torch.convert import params_from
 from sph_tpu_torch.core import fastw as W
 from sph_tpu_torch.core.step import SceneLayout
@@ -330,13 +330,17 @@ def worm():
     ws = W.precompute_wall_static(scene.pos, scene.normal, params, layout,
                                   cfg)
     parts = W._make_step_parts_w(params, layout, cfg, wall_static=ws)
-    ctx, _ = parts.sort_ctx(*scene.device_state("cpu"))
+    state = scene.device_state("cpu")
+    ctx, _ = parts.sort_ctx(*state)
+    # the sorted positions, rows 0-2 of the step's main pack
+    own = torch.stack(parts.carry_of(ctx, state[0])[:3])
     jp, jl = JParams(**WORM), js.layout()
     jcfg = JW.compute_fastw_config(js.pos, jp, jl, ptype=js.ptype)
     jws = JW.precompute_wall_static(js.pos, js.normal, jp, jl, jcfg)
     jctx, _ = JW._make_step_parts_w(jp, jl, jcfg, wall_static=jws)[0](
         *js.device_state())
-    return dict(params=params, scene=scene, cfg=cfg, ctx=ctx, jctx=jctx)
+    return dict(params=params, scene=scene, cfg=cfg, ctx=ctx, jctx=jctx,
+                own=own, spring=parts.passes["spring_ms"])
 
 
 def test_worm_elastic_sort_tables_match_jax(worm):
@@ -377,6 +381,33 @@ def test_worm_elastic_sort_tables_match_jax(worm):
     assert bool((pack[:3, n_el:] > worm["params"].z_max).all())
     assert bool((pack[3:19, n_el:] == -1).all())
     assert not ctx["mem_pack"][:42].any()
+
+
+def test_worm_spring_list_matches_the_pair_form(worm):
+    """The reduced worm's spring list (built by the sort, once a period):
+    it extends the spring tables, holds every slot the slab lists (each
+    spring's partner lies in its row's coverage at sort time), and with
+    the slab's positions and activation terms filled as a step fills them
+    (activations from a seed) its sums equal the pair form's within 1e-5
+    of the pass's rounding scale, the kernel tolerance."""
+    ctx, own, p = worm["ctx"], worm["own"], worm["spring"]
+    lst, els = ctx["spr_list"], ctx["els"]
+    assert len(lst) == 8
+    assert all(a is b for a, b in zip(lst[:6], ctx["spr_tables"]))
+    pack = ctx["spr_pack"].clone()
+    n, n_el = p.n_slots, els.shape[0]
+    assert int(lst[6][-1]) == int((pack[3:3 + n] >= 0).sum()) > 100_000
+    pack[:3, :n_el] = own[:, els]
+    act = torch.as_tensor(np.random.default_rng(0).uniform(
+        0.0, 1.0, MUSCLE_COUNT).astype(np.float32)) * \
+        worm["params"].muscle_force
+    pack[3 + 2 * n:, :n_el] = torch.cat([act.new_zeros(1), act])[
+        ctx["spr_mid"]]
+    lf, pf = p(lst, own, pack), p(lst[:6], own, pack)
+    top = float(torch.stack(p.rounding_scale(lst[:6], own, pack)).max())
+    assert float(torch.stack(pf).abs().max()) > 100 * 1e-5 * top
+    for a, b in zip(lf, pf):
+        assert float((a - b).abs().max()) <= 1e-5 * top
 
 
 def test_port_steps_reduced_worm(worm):
