@@ -688,7 +688,7 @@ __device__ __forceinline__ void ring_column(const P& p,
 // consecutive rows.
 template <class P, int R, int TPR, int STAGES, int ROWS_CTA, bool Exit,
           bool Gated>
-__global__ void __launch_bounds__(512)
+__global__ void __launch_bounds__(ROWS_CTA / R * TPR)
 pair_ring(P p, const float* __restrict__ own, long long own_w,
           const float* __restrict__ slab, long long slab_w,
           const int* __restrict__ aln, const int* __restrict__ s0,
