@@ -143,7 +143,7 @@ class Ring:
 
 # kinds on the ring driver -> their configuration
 RING = {"rho_star": Ring(rows=2, tpr=4, stages=2, rows_cta=64),
-        "viscsurf": Ring(rows=1, tpr=4, stages=2, rows_cta=64, exit=True),
+        "viscsurf": Ring(rows=1, tpr=2, stages=2, rows_cta=64, exit=True),
         "paccel": Ring(rows=1, tpr=4, stages=2, rows_cta=64, exit=True)}
 
 

@@ -29,16 +29,12 @@ from sph_tpu_torch.ops import pair_kernels as pk
 
 Ring = pk.Ring
 CONFIGS = [
-    Ring(rows=1, tpr=4, stages=2, rows_cta=64, exit=True),
-    Ring(rows=2, tpr=4, stages=2, rows_cta=64, exit=True),
     Ring(rows=1, tpr=2, stages=2, rows_cta=64, exit=True),
-    Ring(rows=1, tpr=1, stages=2, rows_cta=64, exit=True),
-    Ring(rows=2, tpr=2, stages=2, rows_cta=64, exit=True),
-    Ring(rows=2, tpr=1, stages=2, rows_cta=64, exit=True),
-    Ring(rows=1, tpr=4, stages=3, rows_cta=64, exit=True),
-    Ring(rows=1, tpr=4, stages=2, rows_cta=128, exit=True),
-    Ring(rows=1, tpr=4, stages=2, rows_cta=32, exit=True),
-    Ring(rows=1, tpr=4, stages=2, rows_cta=64, exit=False),
+    Ring(rows=1, tpr=4, stages=2, rows_cta=64, exit=True),
+    Ring(rows=1, tpr=2, stages=3, rows_cta=64, exit=True),
+    Ring(rows=1, tpr=2, stages=2, rows_cta=128, exit=True),
+    Ring(rows=1, tpr=2, stages=2, rows_cta=32, exit=True),
+    Ring(rows=1, tpr=2, stages=2, rows_cta=64, exit=False),
 ]
 CASES = [("worm", "visc_mm"), ("worm", "visc_ms"), ("dam", "viscsurf"),
          ("dam", "viscsurf_s32"), ("fast_worm", "viscsurf"),
