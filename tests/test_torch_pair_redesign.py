@@ -147,8 +147,9 @@ def test_shared_bytes_is_the_ring(kind, ccol):
 
 def brute_near_pairs(p, own, slab, rows):
     """The pairs of own rows ``rows`` (sorted ids) and every slab column
-    whose force body runs, by brute force in f32 over the whole slab (not
-    the tiles): 0 < r2 and (r < h or r < h/4), r = r2 / sqrt(r2)."""
+    whose body runs, by brute force in f32 over the whole slab (not the
+    tiles): paccel 0 < r2 and (r < h or r < h/4), r = r2 / sqrt(r2);
+    viscsurf r2 < its reach."""
     h, h4 = (np.float32(c) for c in p.consts[:2])
     o = own[:3, rows].numpy().T
     s = slab[:3].numpy()
@@ -156,21 +157,29 @@ def brute_near_pairs(p, own, slab, rows):
     for i in range(0, len(o), 256):
         d = [o[i:i + 256, k:k + 1] - s[k][None, :] for k in range(3)]
         r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        if p.kind == "viscsurf":
+            n += int((r2 < np.float32(p.consts[3])).sum())
+            continue
         r = r2 * (np.float32(1) / np.sqrt(np.maximum(r2, np.float32(1e-30))))
         n += int(((r2 > 0) & ((h - r > 0) | (h4 - r > 0))).sum())
     return n
 
 
-@pytest.mark.parametrize("name", ["pacc_mm", "pacc_ms", "fast_paccel"])
+@pytest.mark.parametrize("name", ["pacc_mm", "pacc_ms", "fast_paccel",
+                                  "visc_mm", "fast_viscsurf"])
 def test_near_pairs_count(recorded, recorded_fast, name):
     """The near pairs the tables list (gated: the ones the gate admits)
     are every pair within h of the whole slab for the rows of the blocks
     that stream tiles (the fast engine gives its wall-only blocks none):
     the maskless invariant puts each in exactly one tile of its row's
-    block."""
+    block. Own pad rows are moved far from every column first: they sit
+    on the slab's pad columns, of which the tiles list only some."""
     from chip_smoke import near_pairs
 
     p, tables, own, slab = ring_calls(recorded, recorded_fast)[name]
+    params = recorded[0]
+    own = own.clone()
+    own[:3, own[0] > max(params.x_max, params.y_max, params.z_max)] += 1e6
     ob = int(tables[5][0])
     streams = np.nonzero(tables[4].numpy() > 0)[0]
     rows = (streams[:, None] * p.block + np.arange(p.block)).ravel() + ob
