@@ -1,6 +1,6 @@
 """The spring pass's list form (``pair_kernels.spring_list`` and the list
 kernel's plain version) against sph_tpu's Pallas spring pass (interpret
-mode), the f64 oracle and the port's pair form, and the list builder's
+mode), the f64 oracle and the port's pair form, and ``spring_list``'s
 contract: the entries the pair pass would match, in its order, in shapes
 fixed by (n_slots, width, n_pad), built without a host sync.
 
@@ -113,7 +113,7 @@ def test_spring_list_matches_pair_form(spring):
 def test_spring_list_is_shape_static(spring):
     """The list's shapes depend on (n_slots, width, n_pad) alone: the same
     for other partner ids (none, or every column listing one partner), and
-    the builder runs on meta tensors, which have no values, so it reads
+    ``spring_list`` runs on meta tensors, which have no values, so it reads
     none on the host (no ``nonzero``, ``.item()`` or ``.tolist()``)."""
     _, (p, tables, own, slab), lst, _ = spring
     shapes = [t.shape for t in lst]
