@@ -72,9 +72,8 @@ Phases (any failure raises and exits nonzero, printing no result):
    slab lists), then all six kernels and their plain versions timed with
    CUDA events at those shapes, beside each kernel's bound: the candidate
    pairs its tables list (tiles x tile width x real own rows) x the
-   functor's operations a pair (for the membrane pass and the early exits
-   what this run's data needs, see ``PAIR_FLOPS``) over the card's f32
-   rate, against its input and output bytes over the card's memory rate;
+   functor's operations a pair (for the early exits what this run's data
+   needs, see ``EXIT_FLOPS``) over the card's f32 rate, against its input and output bytes over the card's memory rate;
    the spring list what its entries need (``list_bound``).
 
 11. kernel vs plain (fast engine, small box): phase 3's settled box with
@@ -123,17 +122,20 @@ Phases (any failure raises and exits nonzero, printing no result):
    kernel, plain and ``torch.stack`` times beside the kernel's bound (8
    rows read and written once over the card's memory rate);
 19. the redesigned kernels against their first designs: the rho*,
-   viscsurf and paccel kernels (``pair_ring``) and the spring list kernel
-   against ``pair_pass`` for the same functors (entry points
-   ``sph_pair_<kind>_prev``, which only this phase calls) on every recorded
-   launch of the fastw worm and box (phases 10 and 6: raw_mm, raw_ms,
-   raw_sm, visc_mm, visc_ms, pacc_mm, pacc_ms, spring_ms) and of the fast
-   engine's viscsurf and paccel on the dam-break and the fast worm, ungated
-   and at sub 8/16/32, and its spring on the fast worm (phases 14 and 15;
-   with ``--only ab`` the inputs come from one resort period of each
-   path): bitwise where the shipped configuration keeps one thread a row
-   (the list kernel does), else held as phase 3 holds a kernel to its plain
-   version; the two timed in turns (previous, new, new, previous; CUDA
+   viscsurf, paccel, boundary and membrane kernels (``pair_ring``) and the
+   spring list kernel against ``pair_pass`` for the same functors (entry
+   points ``sph_pair_<kind>_prev``, which only this phase calls) on every
+   recorded launch of the fastw worm and box (phases 10 and 6: raw_mm,
+   raw_ms, raw_sm, visc_mm, visc_ms, pacc_mm, pacc_ms, bnd_ms, spring_ms,
+   mem_ms) and of the fast engine's viscsurf and paccel on the dam-break
+   and the fast worm, ungated and at sub 8/16/32, its boundary on both and
+   its spring and membrane on the fast worm (phases 14 and 15; with
+   ``--only ab`` the inputs come from one resort period of each path):
+   bitwise where the shipped configuration keeps one thread a row (the
+   list kernel does), else held as phase 3 holds a kernel to its plain
+   version; for the kernels with an exit the pairs under its reach (the
+   membrane's: within r0) beside the candidate pairs and the blocks with
+   tiles; the two timed in turns (previous, new, new, previous; CUDA
    events around 20 launches) and by torch.profiler device time, beside
    the bound (the exits charged for what runs, ``EXIT_FLOPS``, with the
    all-pairs charge beside it; the spring list for its entries, with the
@@ -226,27 +228,31 @@ SOURCE = "sph_tpu_torch/ops/csrc/pair_pass.cu"
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 # f32 operations of one candidate pair in each functor of pair_pass.cu,
-# counted by hand from its pair() (a compare, min/max, sqrt, rsqrt and a
-# division count one each). The liquid passes charge every candidate pair
-# the whole functor. The two elastic passes do work that depends on the
-# data, and are charged what this run's data needs: membrane the distance
-# test (12) for every candidate pair and the 7-triangle side test and sums
-# (7 x 24 + 12) for the pairs within r0; spring see below.
+# counted by hand from its pair_at() (a compare, min/max, sqrt, rsqrt and a
+# division count one each). The kernels without an early exit charge every
+# candidate pair the whole functor; PAIR_FLOPS is the all-pairs charge of
+# the others, printed beside what they are charged (EXIT_FLOPS). Membrane's
+# is its first design's for every pair: the distance test with its sqrtf
+# (12) and the 7-triangle side test and sums (7 x 24 + 12).
 PAIR_FLOPS = {"density": 13, "rho_star": 13, "viscsurf": 25, "paccel": 29,
-              "boundary": 22}
+              "boundary": 22, "membrane": 12 + 7 * 24 + 12}
+# membrane: the distance and its exit test (9) for every candidate pair;
+# for the pairs within r0 the sqrtf, d and its test (3), the 7-triangle
+# side test (7 x 24) and the sums (12)
+MEMBRANE_TEST_FLOPS, MEMBRANE_NEAR_FLOPS = 9, 3 + 7 * 24 + 12
 # The ring kernels with an early exit are charged what runs: paccel the
 # distance and radius test (17, the exit's two compares included) for every
 # candidate pair, the force body (12) for the pairs that run it; viscsurf
-# the distance and its exit test (9) for every candidate pair, the rest
-# (17: sqrtf, the weight, the three velocity terms and the surface test and
-# sums) for the pairs under its reach (``near_pairs``). PAIR_FLOPS stays the
-# all-pairs charge, printed beside it.
-EXIT_FLOPS = {"paccel": (17, 12), "viscsurf": (9, 17)}
+# and boundary the distance and the exit test (9) for every candidate pair,
+# the rest for the pairs under their reach (``near_pairs``): viscsurf 17
+# (sqrtf, the weight, the three velocity terms and the surface test and
+# sums), boundary 14 (sqrtf, d, the weight, the five sums); membrane above.
+EXIT_FLOPS = {"paccel": (17, 12), "viscsurf": (9, 17), "boundary": (9, 14),
+              "membrane": (MEMBRANE_TEST_FLOPS, MEMBRANE_NEAR_FLOPS)}
 # spring on its list: 3 a kept entry (msum, rest, actf), 28 a merged
 # column's term; the first design (a pair pass) one id compare a slot for
 # every candidate pair and the same sums
 SPRING_ENTRY_FLOPS, SPRING_TERM_FLOPS = 3, 28
-MEMBRANE_TEST_FLOPS, MEMBRANE_NEAR_FLOPS = 12, 7 * 24 + 12
 # the reduced worm: full length in a narrower pool, every spring anchor
 # elastic (a lower or tighter box anchors the worm's springs to the walls)
 REDUCED_WORM = dict(x_max=10 * H, y_max=20 * H, z_max=108 * H)
@@ -374,10 +380,9 @@ def elastic_input_counts(params, calls, label,
     row and an elastic column within r0 (new positions) whose column counts
     >= 1 and >= 2 triangles.
     The pairs come from a k-d tree on the host: within r0 is within the
-    block's window, so the tables list them. Returns the data-dependent
-    work of the two passes for ``pass_bound``: the springs the slab lists
-    (the first design's charge), and the pairs of any real own row and an
-    elastic column within r0."""
+    block's window, so the tables list them. Returns the springs the slab
+    lists (the first spring design's charge in ``pass_bound``) and the
+    pairs of any real own row and an elastic column within r0."""
     p, _, _, slab = calls[names[0]][:4]
     n_act = int((slab[3 + 2 * p.n_slots:3 + 3 * p.n_slots] != 0).sum())
     n_springs = int((slab[3:3 + p.n_slots] >= 0).sum())
@@ -433,18 +438,25 @@ def computed_pairs(p, tables, own, far):
     return (int((act.sum(2) * rows).sum()) * p.ccol, int(real.sum()))
 
 
+# kind -> (own rows, slab rows) of the positions a kernel's distance test
+# reads (the boundary and membrane passes: the own rows' new positions)
+TEST_ROWS = {"paccel": (0, 0), "viscsurf": (0, 0), "boundary": (3, pk.PB_X),
+             "membrane": (3, pk.PMM_XN)}
+
+
 def near_pairs(p, tables, own, slab) -> int:
     """The (own row, listed column) pairs whose body runs after a ring
     kernel's early exit, as the kernel tests them in f32: paccel 0 < r and
-    (r < h or r < h/4), viscsurf r2 < its reach; every other pair is an
-    exact zero of the sums. The data-dependent part of their work
-    (``pass_bound``)."""
+    (r < h or r < h/4), viscsurf, boundary and membrane r2 < their reach
+    (the pass's last constant); every other pair is an exact zero of the
+    sums. The data-dependent part of their work (``pass_bound``)."""
     n = 0
+    i0, j0 = TEST_ROWS[p.kind]
     for _, live, o, s, valid, _ in pk.pair_chunks(p, tables, own, slab):
-        dx, dy, dz = o[0] - s[0], o[1] - s[1], o[2] - s[2]
+        dx, dy, dz = (o[i0 + k] - s[j0 + k] for k in range(3))
         r2 = dx * dx + dy * dy + dz * dz
-        if p.kind == "viscsurf":
-            body = valid & (r2 < p.consts[3])
+        if p.kind != "paccel":
+            body = valid & (r2 < p.consts[-1])
         else:
             h, h4 = p.consts[:2]
             r = r2 * torch.rsqrt(torch.clamp(r2, min=1e-30))
@@ -487,12 +499,12 @@ def list_bound(p, tables, own):
 def pass_bound(p, tables, own, slab, far, data_work):
     """(candidate pairs, bound ms, "operations" | "bytes") of one launch:
     pairs = ``computed_pairs``; operations = pairs x the functor's count
-    (see ``PAIR_FLOPS``; ``data_work`` holds the elastic passes'
-    data-dependent pair counts, the exits' near pairs are counted here)
-    over the card's f32 peak; bytes = the pack rows the pass reads, its
-    tables and its outputs, each once, over the card's memory rate. The
-    spring pass on its list: ``list_bound``; on the 6-tuple tables (its
-    first design) the pair pass's bound."""
+    (see ``PAIR_FLOPS``; the exits' near pairs are counted here, see
+    ``EXIT_FLOPS``) over the card's f32 peak; bytes = the pack rows the
+    pass reads, its tables and its outputs, each once, over the card's
+    memory rate. The spring pass on its list: ``list_bound``; on the
+    6-tuple tables (its first design) the pair pass's bound, charged for
+    ``data_work["spring"]``, the springs the slab lists."""
     if p.kind == "spring" and len(tables) == 8:
         return list_bound(p, tables, own)
     n_out, own_rows, slab_rows = pk._rows(p)
@@ -504,9 +516,6 @@ def pass_bound(p, tables, own, slab, far, data_work):
     if p.kind == "spring":
         ops = pairs * p.n_slots + data_work["spring"] * (
             SPRING_ENTRY_FLOPS + SPRING_TERM_FLOPS)
-    elif p.kind == "membrane":
-        ops = (pairs * MEMBRANE_TEST_FLOPS
-               + data_work["membrane"] * MEMBRANE_NEAR_FLOPS)
     elif p.kind in EXIT_FLOPS:
         test, body = EXIT_FLOPS[p.kind]
         ops = pairs * test + near_pairs(p, tables, own, slab) * body
@@ -1684,8 +1693,9 @@ def stash_ab(label, calls, mults):
 
 def fast_ab_inputs(params, sim, state, label):
     """The fast engine's viscsurf and paccel launches on ``state``, ungated
-    and at sub 8/16/32 (the sim's config otherwise), and its spring launch
-    where the scene has one."""
+    and at sub 8/16/32 (the sim's config otherwise), and its boundary,
+    spring and membrane launches (ungated kernels) where the scene has
+    them."""
     out = {}
     for sub in SUBS:
         cfg = dataclasses.replace(sim._fast_cfg, sub=sub)
@@ -1694,8 +1704,10 @@ def fast_ab_inputs(params, sim, state, label):
         for kind in ("viscsurf", "paccel"):
             out[f"{kind}_s{sub}" if sub else kind] = (
                 calls[kind], FAST_PASSES[kind])
-        if sub is None and "spring" in calls:
-            out["spring"] = (calls["spring"], FAST_PASSES["spring"])
+        if sub is None:
+            for kind in ("boundary", "spring", "membrane"):
+                if kind in calls:
+                    out[kind] = (calls[kind], FAST_PASSES[kind])
     AB_INPUTS[label] = out
 
 
@@ -1860,6 +1872,11 @@ def ab_phase(card, profile_steps):
                 ctas = p.n_blocks * p.block // ring.rows_cta
                 charge = "all-pairs charge"
             mean_t, max_t, act = tile_stats(p, tables)
+            if p.kind in EXIT_FLOPS:
+                near = near_pairs(p, tables, own, slab)
+                print(f"  ab {label:9s} {name:11s} {near} pairs under the "
+                      f"exit's reach of {pairs} candidate pairs "
+                      f"({near / max(pairs, 1):.4f})", flush=True)
             print(f"  ab {label:9s} {name:11s} {p.launch_key:10s} blocks "
                   f"{p.n_blocks} ({act} with tiles: {mean_t:.2f} mean, "
                   f"{max_t} max) ccol {p.ccol}: "
@@ -1924,6 +1941,8 @@ def ab_phase(card, profile_steps):
         "paccel": extra("worm", "paccel", "paccel", False),
         "rho_star": extra("worm", "rho_star", "rho_star", False),
         "viscsurf": extra("worm", "viscsurf", "viscsurf", False),
+        "boundary": extra("worm", "boundary", "boundary", False),
+        "membrane": extra("worm", "membrane", "membrane", False),
         "spring": spring,
         "paccel_sub": extra("fast_worm", "paccel_s32", "paccel", True),
         "viscsurf_sub": extra("fast_worm", "viscsurf_s32", "viscsurf",

@@ -16,10 +16,10 @@
 // the same sums and are what the kernels are checked against.
 //
 // Two drivers and a list kernel. pair_pass<P, Gated> (the first design)
-// runs Density, Boundary and Membrane; pair_ring<P, R, TPR, STAGES,
-// ROWS_CTA, Exit, Gated> runs RhoStar, ViscSurf and PAccel; spring_list runs
-// Spring. The functors below are shared by the drivers, and pair_pass keeps
-// the first designs of the four redesigned kernels for chip_smoke.py's
+// runs Density; pair_ring<P, R, TPR, STAGES, ROWS_CTA, Exit, Gated> runs
+// RhoStar, ViscSurf, PAccel, Boundary and Membrane; spring_list runs Spring.
+// The functors below are shared by the drivers, and pair_pass keeps the
+// first designs of the six redesigned kernels for chip_smoke.py's
 // comparison (the sph_pair_<kind>_prev entry points).
 //
 // pair_pass: one CTA per own block, one thread per own row (blockDim =
@@ -42,11 +42,11 @@
 //
 // Shared memory per CTA = slab rows x ccol x 4 B, one tile, dynamic. The
 // five liquid passes stage 3-7 rows (at most 7 x 512 x 4 B = 14 KB).
-// Membrane stages 45 of its pack's 48 rows (the x(t) rows are not read):
-// 45 x 256 x 4 B = 46,080 B, under the 48 KB default. Spring's first
-// design stages 3 + 3 * n_slots rows, a scene property passed at run time:
-// 51 rows x 256 x 4 B = 52,224 B at 16 slots (the worm), 101,376 B at 32;
-// above 48 KB the launcher opts in with
+// Membrane's first design stages 45 of its pack's 48 rows (the x(t) rows
+// are not read): 45 x 256 x 4 B = 46,080 B, under the 48 KB default.
+// Spring's first design stages 3 + 3 * n_slots rows, a scene property
+// passed at run time: 51 rows x 256 x 4 B = 52,224 B at 16 slots (the
+// worm), 101,376 B at 32; above 48 KB the launcher opts in with
 // cudaFuncAttributeMaxDynamicSharedMemorySize (the card allows 227 KB a
 // CTA).
 //
@@ -54,12 +54,11 @@
 // candidate columns per liquid pass (~13-29 flops each; Density 13, as
 // RhoStar: its epilogue is one clamp a row, fused into store); slab bytes
 // are reused from shared memory by all 256 rows of the block, so
-// device-memory traffic is small. Membrane tests the distance first (10
-// flops a pair) and runs the 7-triangle side test (~170 flops) only within
-// r0 of the column, where the weight is nonzero: the sums are unchanged,
-// every skipped term is w = 0. In this driver the loads of a tile are not
-// overlapped with the compute of the previous one and every field is read
-// as a scalar.
+// device-memory traffic is small. Membrane tests the distance first and
+// runs the 7-triangle side test (~170 flops) only within r0 of the column,
+// where the weight is nonzero: the sums are unchanged, every skipped term
+// is w = 0. In this driver the loads of a tile are not overlapped with the
+// compute of the previous one and every field is read as a scalar.
 //
 // spring_list (Spring). As a pair pass Spring compared the own row's
 // sorted id with each candidate column's n_slots partner ids (~90
@@ -75,17 +74,20 @@
 // rest and activation terms and the columns' positions, row_ptr and the
 // outputs: a few MB, a few microseconds, so its time is the launch's.
 //
-// pair_ring, for the liquid kernels that take most of a step (PAccel 6,
-// RhoStar 12 and ViscSurf 2 launches a fastw worm step). What held them
-// back in pair_pass: (1) on the worm's launch shapes (510 and ~208 blocks
+// pair_ring, for the kernels that take most of a step (PAccel 6, RhoStar
+// 12, ViscSurf 2, Boundary 1 and Membrane 1 launches a fastw worm step).
+// What held them back in pair_pass: (1) on the worm's launch shapes (510 and ~208 blocks
 // of 256 rows, 3-4 tiles each) one CTA a block leaves the card in one
 // partial wave set by its heaviest blocks; (2) one scalar LDS a field a
 // pair (5 against ~25 FP32 instructions in PAccel, 3 against ~10 in
-// RhoStar, 7 in ViscSurf) takes issue slots from the FP32 pipe that bounds
-// them; (3) tiles staged by plain loads and two barriers, not overlapped
-// with compute; (4) PAccel and ViscSurf ran their bodies (and ViscSurf its
-// IEEE sqrtf) for every candidate pair, ~97 % of them beyond h. The
-// design:
+// RhoStar, 7 in ViscSurf and Boundary) takes issue slots from the FP32
+// pipe that bounds them; (3) tiles staged by plain loads and two barriers,
+// not overlapped with compute; (4) PAccel, ViscSurf and Boundary ran their
+// bodies (and ViscSurf and Boundary their IEEE sqrtf) for every candidate
+// pair, ~97 % of them beyond h (Boundary's weight reaches only r0 = h/2);
+// (5) Membrane staged 45 rows a tile (46 KB: few CTAs an SM, ~45 scalar
+// loads a thread a tile) where the distance test that ends almost every
+// pair reads 3. The design:
 //  * a ring of STAGES tiles in dynamic shared memory, each filled by one
 //    thread with one 1-D bulk copy (cp.async.bulk, the TMA) a slab row and
 //    completed on an mbarrier (arrive.expect_tx), so tile s+1.. land while
@@ -108,8 +110,15 @@
 //    worm's launches give several CTAs an SM and the load evens out;
 //  * the early exits (Exit) skip a pair's body where every term is an
 //    exact zero, so the sums are unchanged: PAccel's where tt = 0 and
-//    cm <= 0 as computed, ViscSurf's where r2 >= reach, before the sqrtf;
-//    the distance test still runs for every pair.
+//    cm <= 0 as computed; ViscSurf's, Boundary's and Membrane's where r2 >=
+//    their reach, before the sqrtf (see each functor); the distance test
+//    still runs for every pair;
+//  * a functor's staged rows need not start at slab row 0 (kRow0): the
+//    ring stages only the rows that every pair reads. Membrane stages
+//    x(t+1) (rows 42-44: 3 x ccol x 4 B a stage, 6 KB at 2 stages of 256
+//    columns) and reads a near pair's 42 triangle floats from device memory
+//    by the read-only path (RegCol::slab; the worm's whole pack is ~2 MB
+//    and stays in L2).
 // Each row meets its tiles in table order and each thread its columns in
 // ascending order, adding the functor's f32 expressions as written. With
 // TPR 1 a row's sums are bitwise those of pair_pass; with TPR > 1 they
@@ -148,22 +157,31 @@
 namespace {
 
 // A column of a staged tile as the functors of the ring driver read it:
-// t(f) is field f. TileCol reads shared memory (field f at t[f * ccol + j],
-// pair_pass's reads); RegCol<C> reads component C of the float4 that
-// the ring driver loaded for field f (columns j .. j + 3), so both give a
-// functor the same floats.
+// t(f) is staged field f (slab row P::kRow0 + f), t.slab(r) is slab row r
+// of the same column, staged or not. TileCol reads shared memory, where
+// pair_pass stages every slab row a pass reads from row 0 (field f at
+// t[(row0 + f) * ccol + j]); RegCol<C> reads component C of the float4
+// that the ring driver loaded for field f (columns j .. j + 3), and an
+// unstaged row from device memory at the column's slab index col (the
+// read-only path). Both give a functor the same floats; functors that read
+// only staged fields never touch slab() and pay nothing for it.
 struct TileCol {
   const float* t;
   int ccol, j;
-  __device__ float operator()(int f) const { return t[f * ccol + j]; }
+  int row0 = 0;
+  __device__ float operator()(int f) const { return t[(row0 + f) * ccol + j]; }
+  __device__ float slab(int r) const { return t[r * ccol + j]; }
 };
 
 template <int C>
 struct RegCol {
   const float4* v;
+  const float* g;  // the slab pack, [rows][w]
+  long long w, col;
   __device__ float operator()(int f) const {
     return C == 0 ? v[f].x : C == 1 ? v[f].y : C == 2 ? v[f].z : v[f].w;
   }
+  __device__ float slab(int r) const { return __ldg(g + r * w + col); }
 };
 
 struct Density {
@@ -194,7 +212,7 @@ struct Density {
 
 struct RhoStar {
   // slab rows: predicted x, y, z
-  static constexpr int kRows = 3;
+  static constexpr int kRows = 3, kRow0 = 0;
   __host__ __device__ constexpr int slab_rows() const { return kRows; }
   struct Own { float x, y, z; };
   struct Acc { float s; };
@@ -224,7 +242,7 @@ struct RhoStar {
 
 struct ViscSurf {
   // slab rows: x, y, z, vx, vy, vz, 1/rho
-  static constexpr int kRows = 7;
+  static constexpr int kRows = 7, kRow0 = 0;
   __host__ __device__ constexpr int slab_rows() const { return kRows; }
   struct Own { float x, y, z, vx, vy, vz; };
   struct Acc { float vx, vy, vz, sx, sy, sz; };
@@ -273,7 +291,7 @@ struct ViscSurf {
 
 struct PAccel {
   // slab rows: x, y, z, 1/rho*, p
-  static constexpr int kRows = 5;
+  static constexpr int kRows = 5, kRow0 = 0;
   __host__ __device__ constexpr int slab_rows() const { return kRows; }
   struct Own { float x, y, z, p; };
   struct Acc { float x, y, z; };
@@ -318,26 +336,41 @@ struct PAccel {
 
 struct Boundary {
   // slab rows: x, y, z, nx, ny, nz, is_boundary
-  __host__ __device__ constexpr int slab_rows() const { return 7; }
+  static constexpr int kRows = 7, kRow0 = 0;
+  __host__ __device__ constexpr int slab_rows() const { return kRows; }
   struct Own { float x, y, z; };       // post-integrate positions
   struct Acc { float nx, ny, nz, w, w2; };
-  float r0, inv_r0;
+  // reach: the least f32 r2 with sqrtf(r2) >= r0 (ops/pair_kernels.py
+  // sqrt_reach)
+  float r0, inv_r0, reach;
 
   __device__ Own load(const float* own, long long w, long long i) const {
     return {own[3 * w + i], own[4 * w + i], own[5 * w + i]};
   }
-  __device__ void pair(const Own& o, const float* t, int ccol, int j,
-                       Acc& a) const {
-    const float dx = o.x - t[j];
-    const float dy = o.y - t[ccol + j];
-    const float dz = o.z - t[2 * ccol + j];
-    const float d = r0 - sqrtf(dx * dx + dy * dy + dz * dz);
-    const float w = fmaxf(0.0f, d * inv_r0) * t[6 * ccol + j];
-    a.nx += w * t[3 * ccol + j];
-    a.ny += w * t[4 * ccol + j];
-    a.nz += w * t[5 * ccol + j];
+  // Exit: skip the pair before its sqrtf where r2 >= reach. There
+  // sqrtf(r2) >= r0 (sqrtf is correctly rounded, so monotone), so d <= 0
+  // and w = fmaxf(0, d inv_r0) isb is +0 or -0; every term it adds (w n,
+  // w, w d) is then +0 or -0, and adding a zero to the accumulators (which
+  // start at +0) changes none of them: the sums are bitwise those without
+  // the exit
+  template <bool Exit, class T>
+  __device__ void pair_at(const Own& o, const T& t, Acc& a) const {
+    const float dx = o.x - t(0);
+    const float dy = o.y - t(1);
+    const float dz = o.z - t(2);
+    const float r2 = dx * dx + dy * dy + dz * dz;
+    if (Exit && r2 >= reach) return;
+    const float d = r0 - sqrtf(r2);
+    const float w = fmaxf(0.0f, d * inv_r0) * t(6);
+    a.nx += w * t(3);
+    a.ny += w * t(4);
+    a.nz += w * t(5);
     a.w += w;
     a.w2 += w * d;
+  }
+  __device__ void pair(const Own& o, const float* t, int ccol, int j,
+                       Acc& a) const {
+    pair_at<false>(o, TileCol{t, ccol, j}, a);
   }
   __device__ void store(float* out, long long n, long long i,
                         const Acc& a) const {
@@ -405,30 +438,41 @@ struct Spring {
 };
 
 struct Membrane {
-  // slab rows: 7 x (unit normal, vertex) at 6t..6t+5, then x(t+1) at 42-44
-  __host__ __device__ constexpr int slab_rows() const { return 45; }
+  // slab rows: 7 x (unit normal, vertex) at 6t..6t+5, then x(t+1) at 42-44.
+  // The ring stages x(t+1) alone (kRows from kRow0), what the distance test
+  // reads for every pair; the triangle rows are read per pair within r0
+  // (t.slab); pair_pass stages rows 0-44
+  static constexpr int kRows = 3, kRow0 = 42;
+  __host__ __device__ constexpr int slab_rows() const { return kRow0 + kRows; }
   struct Own { float x, y, z; };       // post-integrate positions
   struct Acc { float nx, ny, nz, w, w2; };
-  float r0;
+  // reach: the least f32 r2 with sqrtf(r2) >= r0 (ops/pair_kernels.py
+  // sqrt_reach)
+  float r0, reach;
 
   __device__ Own load(const float* own, long long w, long long i) const {
     return {own[3 * w + i], own[4 * w + i], own[5 * w + i]};
   }
-  __device__ void pair(const Own& o, const float* t, int ccol, int j,
-                       Acc& a) const {
-    const float dx = o.x - t[42 * ccol + j];
-    const float dy = o.y - t[43 * ccol + j];
-    const float dz = o.z - t[44 * ccol + j];
-    const float d = r0 - sqrtf(dx * dx + dy * dy + dz * dz);
-    // beyond r0 the weight is 0 and every term of the five sums with it
+  // beyond r0 the weight is 0 and every term of the five sums with it: the
+  // pair returns at !(d > 0). Exit tests the same predicate before the
+  // sqrtf: r2 >= reach exactly where sqrtf(r2) >= r0, i.e. d <= 0
+  template <bool Exit, class T>
+  __device__ void pair_at(const Own& o, const T& t, Acc& a) const {
+    const float dx = o.x - t(0);
+    const float dy = o.y - t(1);
+    const float dz = o.z - t(2);
+    const float r2 = dx * dx + dy * dy + dz * dz;
+    if (Exit && r2 >= reach) return;
+    const float d = r0 - sqrtf(r2);
     if (!(d > 0.0f)) return;
     float cnt = 0.0f, vx = 0.0f, vy = 0.0f, vz = 0.0f;
 #pragma unroll
     for (int k = 0; k < 7; ++k) {
-      const float* q = t + 6 * k * ccol + j;
-      const float nx = q[0], ny = q[ccol], nz = q[2 * ccol];
-      const float s = (o.x - q[3 * ccol]) * nx + (o.y - q[4 * ccol]) * ny
-                      + (o.z - q[5 * ccol]) * nz;
+      const float nx = t.slab(6 * k), ny = t.slab(6 * k + 1),
+                  nz = t.slab(6 * k + 2);
+      const float s = (o.x - t.slab(6 * k + 3)) * nx
+                      + (o.y - t.slab(6 * k + 4)) * ny
+                      + (o.z - t.slab(6 * k + 5)) * nz;
       if (nx * nx + ny * ny + nz * nz > 0.0f && s != 0.0f) {
         const float sgn = s > 0.0f ? 1.0f : -1.0f;
         cnt += 1.0f;
@@ -445,6 +489,10 @@ struct Membrane {
     a.nz += wc * vz;
     a.w += w;
     a.w2 += w * d;
+  }
+  __device__ void pair(const Own& o, const float* t, int ccol, int j,
+                       Acc& a) const {
+    pair_at<false>(o, TileCol{t, ccol, j, kRow0}, a);
   }
   __device__ void store(float* out, long long n, long long i,
                         const Acc& a) const {
@@ -589,7 +637,8 @@ spring_list(Spring p, const float* __restrict__ own, long long own_w,
 }
 
 // ---------------------------------------------------------------------------
-// The ring driver (RhoStar, ViscSurf, PAccel; see the header comment)
+// The ring driver (RhoStar, ViscSurf, PAccel, Boundary, Membrane; see
+// the header comment)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -643,8 +692,9 @@ __device__ __forceinline__ void tile_at(const int* aln, const int* s0, int b,
 }
 
 // Tile s into ring stage s % STAGES: one arrival with its byte count, then
-// one bulk copy per slab row. Called by one thread.
-template <int NF, int STAGES>
+// one bulk copy per staged slab row (rows ROW0 .. ROW0 + NF - 1). Called by
+// one thread.
+template <int NF, int ROW0, int STAGES>
 __device__ __forceinline__ void fetch_tile(const float* slab, long long slab_w,
                                            const int* aln, const int* s0,
                                            int b, int s1, int s2, int s,
@@ -660,22 +710,25 @@ __device__ __forceinline__ void fetch_tile(const float* slab, long long slab_w,
 #pragma unroll
     for (int f = 0; f < NF; ++f)
       bulk_load(ring0 + 4u * (unsigned)((st * NF + f) * ccol),
-                slab + (long long)f * slab_w + off, 4u * ncol, bar);
+                slab + (long long)(ROW0 + f) * slab_w + off, 4u * ncol, bar);
   }
 }
 
-// One column C of the four a float4 load holds, for each of a thread's R
-// rows (in the gated form only the rows whose group takes the tile).
+// One column C of the four a float4 load holds (slab column col + C), for
+// each of a thread's R rows (in the gated form only the rows whose group
+// takes the tile).
 template <int C, bool Exit, bool Gated, int R, class P>
 __device__ __forceinline__ void ring_column(const P& p,
                                             const typename P::Own* o,
                                             const float4* v,
+                                            const float* slab,
+                                            long long slab_w, long long col,
                                             typename P::Acc* acc,
                                             const bool* on) {
-  const RegCol<C> col{v};
+  const RegCol<C> t{v, slab, slab_w, col + C};
 #pragma unroll
   for (int k = 0; k < R; ++k)
-    if (!Gated || on[k]) p.template pair_at<Exit>(o[k], col, acc[k]);
+    if (!Gated || on[k]) p.template pair_at<Exit>(o[k], t, acc[k]);
 }
 
 // R: own rows a thread; TPR: threads a row (part q of a row's TPR threads
@@ -695,9 +748,10 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
           const int* __restrict__ cnt, const int* __restrict__ ob,
           const int* __restrict__ glo, const int* __restrict__ ghi, int sub,
           float* __restrict__ out, long long n_pad, int block, int ccol) {
-  constexpr int NF = P::kRows;
+  constexpr int NF = P::kRows, ROW0 = P::kRow0;
   constexpr int SPAN = ROWS_CTA / R;
-  extern __shared__ __align__(16) float ring[];  // [STAGES][NF][ccol]
+  // [STAGES][NF][ccol]: slab rows ROW0 .. ROW0 + NF - 1 of a tile
+  extern __shared__ __align__(16) float ring[];
   __shared__ __align__(8) unsigned long long full[STAGES];
   const int splits = block / ROWS_CTA;
   const int b = blockIdx.x / splits;
@@ -738,8 +792,8 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
   __syncthreads();  // the barriers are initialised
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES && s < n_s; ++s)
-      fetch_tile<NF, STAGES>(slab, slab_w, aln, s0, b, s1, s2, s, ccol,
-                             ring0, bar0);
+      fetch_tile<NF, ROW0, STAGES>(slab, slab_w, aln, s0, b, s1, s2, s,
+                                   ccol, ring0, bar0);
   }
 
   for (int s = 0; s < n_s; ++s) {
@@ -768,18 +822,19 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
 #pragma unroll
         for (int f = 0; f < NF; ++f)
           v[f] = *reinterpret_cast<const float4*>(t + f * ccol + j);
-        ring_column<0, Exit, Gated, R>(p, o, v, acc, on);
-        ring_column<1, Exit, Gated, R>(p, o, v, acc, on);
-        ring_column<2, Exit, Gated, R>(p, o, v, acc, on);
-        ring_column<3, Exit, Gated, R>(p, o, v, acc, on);
+        const long long col = off + j;
+        ring_column<0, Exit, Gated, R>(p, o, v, slab, slab_w, col, acc, on);
+        ring_column<1, Exit, Gated, R>(p, o, v, slab, slab_w, col, acc, on);
+        ring_column<2, Exit, Gated, R>(p, o, v, slab, slab_w, col, acc, on);
+        ring_column<3, Exit, Gated, R>(p, o, v, slab, slab_w, col, acc, on);
       }
     }
     if (s + STAGES < n_s) {
       __syncthreads();  // every thread is done with stage st
       if (threadIdx.x == 0) {
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        fetch_tile<NF, STAGES>(slab, slab_w, aln, s0, b, s1, s2, s + STAGES,
-                               ccol, ring0, bar0);
+        fetch_tile<NF, ROW0, STAGES>(slab, slab_w, aln, s0, b, s1, s2,
+                                     s + STAGES, ccol, ring0, bar0);
       }
     }
   }
@@ -841,7 +896,8 @@ int launch_ring(const P& p, const float* own, long long own_w,
 // (the -DSPH_<KIND>_<FIELD> defines of ops/_build.py): R, TPR, STAGES,
 // ROWS_CTA, Exit.
 #if !defined(SPH_RHO_STAR_ROWS) || !defined(SPH_VISCSURF_ROWS) || \
-    !defined(SPH_PACCEL_ROWS)
+    !defined(SPH_PACCEL_ROWS) || !defined(SPH_BOUNDARY_ROWS) ||         \
+    !defined(SPH_MEMBRANE_ROWS)
 #error "build with the ring defines of sph_tpu_torch/ops/_build.py"
 #endif
 #define SPH_RING(K)                                                          \
@@ -908,8 +964,18 @@ int sph_pair_spring_prev(SPH_PAIR_ARGS) {
   return SPH_UNGATED((Spring{c0, c1, c2, c3, i0}));
 }
 
+int sph_pair_boundary_prev(SPH_PAIR_ARGS) {
+  return SPH_UNGATED((Boundary{c0, c1, c2}));
+}
+
+int sph_pair_membrane_prev(SPH_PAIR_ARGS) {
+  return SPH_UNGATED((Membrane{c0, c1}));
+}
+
 int sph_pair_boundary(SPH_PAIR_ARGS) {
-  return SPH_UNGATED((Boundary{c0, c1}));
+  if (sub != 0) return (int)cudaErrorInvalidValue;
+  return launch_ring<SPH_RING(BOUNDARY), false>(Boundary{c0, c1, c2},
+                                                 SPH_PAIR_FWD);
 }
 
 // the spring pass on its list (ops/pair_kernels.py spring_list): row_ptr
@@ -928,7 +994,9 @@ int sph_pair_spring(const float* own, long long own_w, const float* slab,
 }
 
 int sph_pair_membrane(SPH_PAIR_ARGS) {
-  return SPH_UNGATED(Membrane{c0});
+  if (sub != 0) return (int)cudaErrorInvalidValue;
+  return launch_ring<SPH_RING(MEMBRANE), false>(Membrane{c0, c1},
+                                                 SPH_PAIR_FWD);
 }
 
 const char* sph_cuda_error_string(int err) {

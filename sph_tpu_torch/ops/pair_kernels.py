@@ -40,13 +40,19 @@ tensors it launches the kernel (``csrc/pair_pass.cu``) or raises. Each kernel
 launch adds one to ``LAUNCHES[kind]``, a gated one to ``LAUNCHES[kind +
 "_sub"]``.
 
-The rho* (raw), viscosity/surface and pressure-force kernels run on the
-ring driver (``pair_ring`` in ``csrc/pair_pass.cu``) in the configuration
-``RING`` gives: their slab tiles are copied into a ring of shared-memory
-stages by 16-byte bulk copies, so their slab pack must start on a 16-byte
-boundary and have a width that is a multiple of 4, ``ccol`` and every tile
-offset (``aln``) must be multiples of 4, and a CTA's ``rows_cta`` must
-divide ``block`` (``_check``).
+Every pair pass but the density one runs on the ring driver (``pair_ring``
+in ``csrc/pair_pass.cu``) in the configuration ``RING`` gives: rho* (raw),
+viscosity/surface, pressure force, boundary and membrane. Their slab tiles
+are copied into a ring of shared-memory stages by 16-byte bulk copies, so
+their slab pack must start on a 16-byte boundary and have a width that is a
+multiple of 4, ``ccol`` and every tile offset (``aln``) must be multiples of
+4, and a CTA's ``rows_cta`` must divide ``block`` (``_check``). The ring
+stages the slab rows every pair reads (``PairPass.staged_rows``): the
+membrane pass only its x(t+1) rows, its kernel reading the triangle rows
+of the few pairs within r0 from device memory. The viscosity/surface,
+pressure-force, boundary and membrane kernels skip a pair's body where
+every term is an exact zero (``Ring.exit``); the thresholds are the passes'
+last constants (``sqrt_reach``).
 
 The spring pass runs on a list, not on tiles: ``spring_list`` (once per
 resort period) turns the tile tables and the partner ids of the spring
@@ -138,13 +144,19 @@ class Ring:
     tpr: int           # threads a row; their partial sums add in fixed order
     stages: int        # tiles in the shared-memory ring
     rows_cta: int      # rows of an own block a CTA takes
-    exit: bool = False  # the pressure force's exact early exit
+    exit: bool = False  # the kind's exact early exit
 
 
 # kinds on the ring driver -> their configuration
 RING = {"rho_star": Ring(rows=2, tpr=4, stages=2, rows_cta=64),
         "viscsurf": Ring(rows=1, tpr=2, stages=2, rows_cta=64, exit=True),
-        "paccel": Ring(rows=1, tpr=4, stages=2, rows_cta=64, exit=True)}
+        "paccel": Ring(rows=1, tpr=4, stages=2, rows_cta=64, exit=True),
+        "boundary": Ring(rows=1, tpr=2, stages=2, rows_cta=64, exit=True),
+        "membrane": Ring(rows=1, tpr=2, stages=2, rows_cta=128, exit=True)}
+
+# kind -> the first slab row the ring stages, where it is not row 0: the
+# membrane kernel stages x(t+1), what its distance test reads for every pair
+_RING_ROW0 = {"membrane": PMM_XN}
 
 
 # Kernel launches per kind, gated launches as kind + "_sub" (plain ints,
@@ -200,14 +212,23 @@ class PairPass:
         return _rows(self)[2]
 
     @property
-    def shared_bytes(self) -> int:
-        """Dynamic shared memory of one kernel launch: one staged tile, on
-        the ring driver its ring of ``RING[kind].stages`` tiles, none for
-        the spring list kernel."""
+    def staged_rows(self) -> int:
+        """Slab rows a kernel launch stages in shared memory a tile: on the
+        ring driver those from ``_RING_ROW0`` (0 by default) up to the last
+        row the pass reads, on the first driver every row it reads, none
+        for the spring list kernel."""
         if self.kind == "spring":
             return 0
+        if self.kind not in RING:
+            return self.slab_rows
+        return self.slab_rows - _RING_ROW0.get(self.kind, 0)
+
+    @property
+    def shared_bytes(self) -> int:
+        """Dynamic shared memory of one kernel launch: one staged tile, on
+        the ring driver its ring of ``RING[kind].stages`` tiles."""
         ring = RING.get(self.kind)
-        return 4 * self.slab_rows * self.ccol * (ring.stages if ring else 1)
+        return 4 * self.staged_rows * self.ccol * (ring.stages if ring else 1)
 
     def __call__(self, tables, own_pack, slab_pack):
         dev = own_pack.device.type
@@ -341,11 +362,15 @@ def make_paccel_pass(*, block, ccol, n_blocks, inv_h2, inv_h, rho0_delta,
 def make_boundary_pass(*, block, ccol, n_blocks, r0, **_):
     """Ihmsen boundary sums: d = |x_new,i - x_j|, w = max(0, (r0 - d)/r0)
     * isb_j; outputs sum w n_j (3), sum w, sum w (r0 - d). Own pack cols
-    [x_t, y_t, z_t, xn, yn, zn]; slab = boundary pack (BND_COLS)."""
+    [x_t, y_t, z_t, xn, yn, zn]; slab = boundary pack (BND_COLS).
+
+    The third constant is the kernel's exact early exit: at r2 >=
+    sqrt_reach(r0), sqrtf(r2) >= r0, so w is a zero and so is every term;
+    the pair is skipped before its sqrtf."""
     r0 = np.float32(r0)
     inv_r0 = np.float32(1.0 / r0)
     return PairPass("boundary", block, ccol, n_blocks,
-                    (float(r0), float(inv_r0)))
+                    (float(r0), float(inv_r0), float(sqrt_reach(r0))))
 
 
 def make_spring_pass(*, block, ccol, n_blocks, inv_h, h_scale, k_spring,
@@ -387,8 +412,14 @@ def make_membrane_pass(*, block, ccol, n_blocks, r0, **_):
     Own pack cols [x_t, y_t, z_t, xn, yn, zn]; slab = membrane pack
     (``MEM_COLS`` rows; columns without a triangle carry all-zero normals).
     Blocks without liquid near a membrane have their tile count zeroed by
-    the caller, which also masks the correction to liquid rows."""
-    return PairPass("membrane", block, ccol, n_blocks, (_f32(r0),))
+    the caller, which also masks the correction to liquid rows.
+
+    The second constant is the kernel's exit, sqrt_reach(r0): r2 >= it
+    exactly where d >= r0, the pairs whose weight is 0, tested before the
+    sqrtf."""
+    r0 = np.float32(r0)
+    return PairPass("membrane", block, ccol, n_blocks,
+                    (float(r0), float(sqrt_reach(r0))))
 
 
 # ---------------------------------------------------------------------------
@@ -439,7 +470,7 @@ def _paccel_pairs(p, o, s, valid, gid, scale):
 
 
 def _boundary_pairs(p, o, s, valid, gid, scale):
-    r0, inv_r0 = p.consts
+    r0, inv_r0 = p.consts[:2]
     dnx, dny, dnz = o[3] - s[PB_X], o[4] - s[PB_Y], o[5] - s[PB_Z]
     dist = torch.sqrt(dnx * dnx + dny * dny + dnz * dnz)
     w = torch.clamp((r0 - dist) * inv_r0, min=0.0)
@@ -482,7 +513,7 @@ def _spring_pairs(p, o, s, valid, gid, scale):
 
 
 def _membrane_pairs(p, o, s, valid, gid, scale):
-    (r0,) = p.consts
+    r0 = p.consts[0]
     xn, yn, zn = o[3], o[4], o[5]
     cnt = vx = vy = vz = 0.0
     for t in range(MEM_TRIS):

@@ -722,7 +722,9 @@ def test_pass_constants_match_jax_wrappers():
     assert pacc.consts[3] == float(np.float32(0.5) * inv_h * inv_h)
     bnd = pk.make_boundary_pass(r0=np.float32(params.r0), **kw)
     r0 = np.float32(params.r0)
-    assert bnd.consts == (float(r0), float(np.float32(1.0 / r0)))
+    # the third is the kernel's exit threshold, which no JAX wrapper has
+    assert bnd.consts == (float(r0), float(np.float32(1.0 / r0)),
+                          float(pk.sqrt_reach(r0)))
     den = pk.make_density_pass(c_rho=np.float32(params.c_rho), **kw)
     h2 = np.float32(1.0) / inv_h2
     assert den.consts == (float(h2), float(np.float32(h2 * h2) * h2),
