@@ -126,10 +126,10 @@
 // the split (chip_smoke.py holds them to the kernel tolerance). Stages, R,
 // TPR, ROWS_CTA and Exit were chosen by timing a matrix of them on the card
 // (PERF.md): R 1-2, TPR 4 and 64 rows a CTA won on the worm's launches, R 4
-// spilled and lost (ViscSurf: its own matrix, PERF.md). The shipped values
-// are owned by ops/pair_kernels.py
-// (RING) and reach this file as -DSPH_<KIND>_<FIELD> defines from
-// ops/_build.py.
+// spilled and lost (ViscSurf, Boundary and Membrane: their own matrices,
+// PERF.md; TPR 2 won for the three, and 128 rows a CTA for Membrane). The
+// shipped values are owned by ops/pair_kernels.py (RING) and reach this
+// file as -DSPH_<KIND>_<FIELD> defines from ops/_build.py.
 //
 // The subgroup gate (Gated = true; Density, ViscSurf, PAccel). A block's
 // window is the union of its rows' reach: a 256-row block spans several

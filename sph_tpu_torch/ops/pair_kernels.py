@@ -40,19 +40,20 @@ tensors it launches the kernel (``csrc/pair_pass.cu``) or raises. Each kernel
 launch adds one to ``LAUNCHES[kind]``, a gated one to ``LAUNCHES[kind +
 "_sub"]``.
 
-Every pair pass but the density one runs on the ring driver (``pair_ring``
-in ``csrc/pair_pass.cu``) in the configuration ``RING`` gives: rho* (raw),
-viscosity/surface, pressure force, boundary and membrane. Their slab tiles
-are copied into a ring of shared-memory stages by 16-byte bulk copies, so
-their slab pack must start on a 16-byte boundary and have a width that is a
-multiple of 4, ``ccol`` and every tile offset (``aln``) must be multiples of
-4, and a CTA's ``rows_cta`` must divide ``block`` (``_check``). The ring
-stages the slab rows every pair reads (``PairPass.staged_rows``): the
-membrane pass only its x(t+1) rows, its kernel reading the triangle rows
-of the few pairs within r0 from device memory. The viscosity/surface,
-pressure-force, boundary and membrane kernels skip a pair's body where
-every term is an exact zero (``Ring.exit``); the thresholds are the passes'
-last constants (``sqrt_reach``).
+Every pair pass but the density and spring ones runs on the ring driver
+(``pair_ring`` in ``csrc/pair_pass.cu``) in the configuration ``RING``
+gives: rho* (raw), viscosity/surface, pressure force, boundary and
+membrane. Their slab tiles are copied into a ring of shared-memory stages
+by 16-byte bulk copies, so their slab pack must start on a 16-byte boundary
+and have a width that is a multiple of 4, ``ccol`` and every tile offset
+(``aln``) must be multiples of 4, and a CTA's ``rows_cta`` must divide
+``block`` (``_check``). The ring stages the slab rows every pair reads
+(``PairPass.staged_rows``): the membrane pass only its x(t+1) rows, its
+kernel reading the triangle rows of the few pairs within r0 from device
+memory. The viscosity/surface, pressure-force, boundary and membrane
+kernels skip a pair's body where every term is an exact zero
+(``Ring.exit``); the thresholds are the passes' last constants
+(``sqrt_reach``).
 
 The spring pass runs on a list, not on tiles: ``spring_list`` (once per
 resort period) turns the tile tables and the partner ids of the spring
