@@ -73,8 +73,9 @@ Phases (any failure raises and exits nonzero, printing no result):
    CUDA events at those shapes, beside each kernel's bound: the candidate
    pairs its tables list (tiles x tile width x real own rows) x the
    functor's operations a pair (for the early exits what this run's data
-   needs, see ``EXIT_FLOPS``) over the card's f32 rate, against its input and output bytes over the card's memory rate;
-   the spring list what its entries need (``list_bound``).
+   needs, see ``EXIT_FLOPS``) over the card's f32 rate, against its input
+   and output bytes over the card's memory rate; the spring list what its
+   entries need (``list_bound``).
 
 11. kernel vs plain (fast engine, small box): phase 3's settled box with
    ``compute_fast_config`` at block 128, ccol 128, every pass of one fast

@@ -76,9 +76,9 @@
 //
 // pair_ring, for the kernels that take most of a step (PAccel 6, RhoStar
 // 12, ViscSurf 2, Boundary 1 and Membrane 1 launches a fastw worm step).
-// What held them back in pair_pass: (1) on the worm's launch shapes (510 and ~208 blocks
-// of 256 rows, 3-4 tiles each) one CTA a block leaves the card in one
-// partial wave set by its heaviest blocks; (2) one scalar LDS a field a
+// What held them back in pair_pass: (1) on the worm's launch shapes (510
+// and ~208 blocks of 256 rows, 3-4 tiles each) one CTA a block leaves the
+// card in one partial wave set by its heaviest blocks; (2) one scalar LDS a field a
 // pair (5 against ~25 FP32 instructions in PAccel, 3 against ~10 in
 // RhoStar, 7 in ViscSurf and Boundary) takes issue slots from the FP32
 // pipe that bounds them; (3) tiles staged by plain loads and two barriers,
