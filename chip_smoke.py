@@ -121,14 +121,17 @@ Phases (any failure raises and exits nonzero, printing no result):
    ``sph_tpu_torch.scripts.r4_glue_micro.run()`` with its launches and
    ``pack`` calls counted (one launch a call), its table of times, and the
    kernel, plain and ``torch.stack`` times beside the kernel's bound (8
-   rows read and written once over the card's memory rate);
-19. the redesigned kernels against their first designs: the rho*,
-   viscsurf, paccel, boundary and membrane kernels (``pair_ring``) and the
-   spring list kernel against ``pair_pass`` for the same functors (entry
-   points ``sph_pair_<kind>_prev``, which only this phase calls) on every
-   recorded launch of the fastw worm and box (phases 10 and 6: raw_mm,
-   raw_ms, raw_sm, visc_mm, visc_ms, pacc_mm, pacc_ms, bnd_ms, spring_ms,
-   mem_ms) and of the fast engine's viscsurf and paccel on the dam-break
+   rows read and written once over the card's memory rate); the device
+   times with the inputs warm in L2 and with L2 flushed before every call
+   (a 256 MB buffer written), which the bound holds;
+19. the redesigned kernels against their first designs: the density,
+   rho*, viscsurf, paccel, boundary and membrane kernels (``pair_ring``)
+   and the spring list kernel against ``pair_pass`` for the same functors
+   (entry points ``sph_pair_<kind>_prev``, which only this phase calls) on
+   every recorded launch of the fastw worm and box (phases 10 and 6:
+   raw_mm, raw_ms, raw_sm, visc_mm, visc_ms, pacc_mm, pacc_ms, bnd_ms,
+   spring_ms, mem_ms) and of the fast engine's density (the time-t density
+   and rho* on the iteration pack), viscsurf and paccel on the dam-break
    and the fast worm, ungated and at sub 8/16/32, its boundary on both and
    its spring and membrane on the fast worm (phases 14 and 15; with
    ``--only ab`` the inputs come from one resort period of each path):
@@ -155,7 +158,9 @@ Ends with a JSON line of per-kernel results (each kernel's numbers from the
 path that runs it at its main shapes, with its launches a step on every
 path, its registers, and for the redesigned kernels the in-call A/B's
 per-step times, ``prev_ms`` beside ``ab_ms`` and their profiler device
-times) and, last, the one-line ``{"ok": true, "device": {...}}``.
+times: a dam-break step's for density, a fastw worm step's for the others,
+a fast worm step's at sub 32 for the gated kernels) and, last, the one-line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -595,25 +600,37 @@ def time_ms(fn, reps, warm=True):
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, reps=50, tries=3):
+def device_ms(fn, reps=50, tries=3, flush=None):
     """Mean device milliseconds a call of the one CUDA kernel it launches
     (torch.profiler over ``reps`` calls, after one untimed call), or None
     unless the profiler recorded exactly ``reps`` kernels in one of
     ``tries`` sessions: sessions were seen to drop kernel records now and
     then, and always after a long profiled window in the same process
-    (why ``--profile-steps`` runs last)."""
+    (why ``--profile-steps`` runs last). With ``flush`` (a tensor larger
+    than the card's 50 MB L2) it is overwritten before every call, so each
+    call finds its inputs in device memory, not in L2; the kernels that
+    write it are left out of the sum."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
+    cuda = torch.autograd.DeviceType.CUDA
+    skip = set()
+    if flush is not None:
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            flush.fill_(1.0)
+            torch.cuda.synchronize()
+        skip = {e.key for e in prof.key_averages() if e.device_type == cuda}
     fn()
     torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
     for _ in range(tries):
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
+                if flush is not None:
+                    flush.fill_(1.0)
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == cuda and e.key not in skip]
         if sum(e.count for e in kernels) == reps:
             return sum(e.self_device_time_total for e in kernels) / reps / 1e3
     return None
@@ -1561,13 +1578,20 @@ def pack_phase(card, profile_steps):
           f"{library_ms:.5f} ms, bound {bound_ms:.5f} ms ({nbytes} bytes); "
           f"CUDA events around {glue.REPS} back-to-back calls [{card}]",
           flush=True)
-    dev = [device_ms(f) for f in (
+    # device times: inputs warm in L2 (back-to-back calls leave them there:
+    # 15 MB of a 50 MB L2), then cold, as the glue path's caller finds them
+    # after a step's pair passes: a 256 MB buffer written before every call
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    dev, cold = ([device_ms(f, flush=fl) for f in (
         lambda: pack_ops.pack_kernel(fields),
-        lambda: torch.stack(fields, 0))]
-    print("  device time a call (torch.profiler, 50 calls): pack kernel "
-          + ", torch.stack ".join("not measured" if t is None else
-                                  f"{t:.5f} ms" for t in dev)
-          + f" [{card}]", flush=True)
+        lambda: torch.stack(fields, 0))] for fl in (None, flush))
+    del flush
+    for what, ts in (("L2 warm", dev), ("L2 flushed", cold)):
+        print(f"  device time a call (torch.profiler, 50 calls, {what}): "
+              "pack kernel " + ", torch.stack ".join(
+                  "not measured" if t is None else f"{t:.5f} ms"
+                  for t in ts)
+              + f"; bound {bound_ms:.5f} ms [{card}]", flush=True)
     entry = dict(
         name="pack", route="cuda", source="sph_tpu_torch/ops/csrc/pack.cu",
         replaces="scripts/r4_glue_micro.py:48", launches=launches,
@@ -1575,7 +1599,8 @@ def pack_phase(card, profile_steps):
         bound_by="bytes", library_ms=library_ms,
         ms_scope=(f"one call, {glue.ROWS} rows x {glue.N}, CUDA events "
                   f"around {glue.REPS} calls (host dispatch included)"),
-        device_ms=dev[0], library_device_ms=dev[1],
+        device_ms=cold[0], library_device_ms=cold[1],
+        device_ms_l2_warm=dev[0], library_device_ms_l2_warm=dev[1],
         # the glue's n is a multiple of 4: the float4 instantiation
         registers=_regs(next((r for r in BUILD_REPORT
                               if r["key"] == ("pack_rows", "float4")), None)))
@@ -1693,16 +1718,16 @@ def stash_ab(label, calls, mults):
 
 
 def fast_ab_inputs(params, sim, state, label):
-    """The fast engine's viscsurf and paccel launches on ``state``, ungated
-    and at sub 8/16/32 (the sim's config otherwise), and its boundary,
-    spring and membrane launches (ungated kernels) where the scene has
-    them."""
+    """The fast engine's density (the time-t density and rho* on the
+    iteration pack), viscsurf and paccel launches on ``state``, ungated and
+    at sub 8/16/32 (the sim's config otherwise), and its boundary, spring
+    and membrane launches (ungated kernels) where the scene has them."""
     out = {}
     for sub in SUBS:
         cfg = dataclasses.replace(sim._fast_cfg, sub=sub)
         calls = record_fast_inputs(params, sim.layout, cfg, state,
                                    sim.springs, sim.membranes)
-        for kind in ("viscsurf", "paccel"):
+        for kind in ("density", "rho_star", "viscsurf", "paccel"):
             out[f"{kind}_s{sub}" if sub else kind] = (
                 calls[kind], FAST_PASSES[kind])
         if sub is None:
@@ -1833,7 +1858,7 @@ def ab_phase(card, profile_steps):
                 # the first design stages 3 + 3 n_slots rows a tile: above
                 # 48 KB its launch takes the shared-memory opt-in branch
                 staged = 4 * p.slab_rows * p.ccol
-                print(f"  ab {label:9s} {name:11s} first design stages "
+                print(f"  ab {label:9s} {name:12s} first design stages "
                       f"{staged} B a tile (opt-in above {48 * 1024})",
                       flush=True)
                 check(label != "worm" or staged > 48 * 1024,
@@ -1875,10 +1900,10 @@ def ab_phase(card, profile_steps):
             mean_t, max_t, act = tile_stats(p, tables)
             if p.kind in EXIT_FLOPS:
                 near = near_pairs(p, tables, own, slab)
-                print(f"  ab {label:9s} {name:11s} {near} pairs under the "
+                print(f"  ab {label:9s} {name:12s} {near} pairs under the "
                       f"exit's reach of {pairs} candidate pairs "
                       f"({near / max(pairs, 1):.4f})", flush=True)
-            print(f"  ab {label:9s} {name:11s} {p.launch_key:10s} blocks "
+            print(f"  ab {label:9s} {name:12s} {p.launch_key:10s} blocks "
                   f"{p.n_blocks} ({act} with tiles: {mean_t:.2f} mean, "
                   f"{max_t} max) ccol {p.ccol}: "
                   f"{'bitwise' if bitwise else 'within tolerance'} "
@@ -1905,17 +1930,34 @@ def ab_phase(card, profile_steps):
             acc["all_pairs"] += mult * all_ms
             acc["err"] = max(acc["err"], err)
     for (label, group), a in sorted(totals.items()):
-        print(f"  ab {label:9s} {group:10s} per step: previous {a['prev']:.4f}"
+        print(f"  ab {label:9s} {group:12s} per step: previous {a['prev']:.4f}"
               f" ms, new {a['new']:.4f} ms (x{a['prev'] / a['new']:.3f}); "
               f"device {fmt_ms(a['prev_dev'])} / {fmt_ms(a['new_dev'])} ms; "
               f"bound {a['bound']:.5f} ms = {a['bound'] / a['new']:.3f} of "
               f"the new kernel's time (all-pairs or pair-form charge "
               f"{a['all_pairs']:.5f}) [{card}]", flush=True)
-    for kind in AB_KINDS:
-        a = totals[("worm", kind)]
-        print(f"  ab worm {kind}: the new kernel "
+
+    def step_total(label, groups):
+        """One step's totals over the fast-engine groups (or a fastw
+        kind) of ``label``."""
+        out = {}
+        for key in totals[(label, groups[0])]:
+            vals = [totals[(label, g)][key] for g in groups]
+            out[key] = (max(vals) if key == "err" else None
+                        if None in vals else sum(vals))
+        return out
+
+    # each kind on the path where it takes the most time: density on the
+    # dam-break (the time-t density and the 3 rho* launches), the others on
+    # the fastw worm
+    main_ab = {kind: ("worm", (kind,)) for kind in AB_KINDS}
+    main_ab["density"] = ("dam", ("density", "rho_star"))
+    for kind, (label, groups) in main_ab.items():
+        a = step_total(label, groups)
+        print(f"  ab {label} {kind}: the new kernel "
               f"{'is' if a['new'] < a['prev'] else 'is NOT'} below the "
-              f"previous design a step", flush=True)
+              f"previous design a step (previous {a['prev']:.4f} ms, new "
+              f"{a['new']:.4f} ms) [{card}]", flush=True)
 
     call = AB_INPUTS["worm"]["pacc_mm"][0]
     print(f"  host time of one pair launch (pacc_mm, 200 calls, no "
@@ -1923,8 +1965,8 @@ def ab_phase(card, profile_steps):
     for name, us in host_launch_us(call).items():
         print(f"    {name:34s} {us:8.2f} us", flush=True)
 
-    def extra(label, group, kind, gated):
-        a = totals[(label, group)]
+    def extra(label, groups, kind, gated):
+        a = step_total(label, groups)
         cur = shipped_kernel(kind, gated)
         prev = next((r for r in BUILD_REPORT if r["driver"] == "pair_pass"
                      and r["key"] == (kind, int(gated))), None)
@@ -1936,18 +1978,14 @@ def ab_phase(card, profile_steps):
                     registers=cur and cur["regs"],
                     prev_registers=prev and prev["regs"],
                     bound_ms_all_pairs=a["all_pairs"])
-    spring = extra("worm", "spring", "spring", False)
-    spring["launch_floor_device_ms"] = floor_ms
-    return dict(kernels={}, launches={}, extra={
-        "paccel": extra("worm", "paccel", "paccel", False),
-        "rho_star": extra("worm", "rho_star", "rho_star", False),
-        "viscsurf": extra("worm", "viscsurf", "viscsurf", False),
-        "boundary": extra("worm", "boundary", "boundary", False),
-        "membrane": extra("worm", "membrane", "membrane", False),
-        "spring": spring,
-        "paccel_sub": extra("fast_worm", "paccel_s32", "paccel", True),
-        "viscsurf_sub": extra("fast_worm", "viscsurf_s32", "viscsurf",
-                              True)})
+    out = {kind: extra(label, groups, kind, False)
+           for kind, (label, groups) in main_ab.items()}
+    out["spring"]["launch_floor_device_ms"] = floor_ms
+    for kind, groups in (("density", ("density_s32", "rho_star_s32")),
+                         ("viscsurf", ("viscsurf_s32",)),
+                         ("paccel", ("paccel_s32",))):
+        out[kind + "_sub"] = extra("fast_worm", groups, kind, True)
+    return dict(kernels={}, launches={}, extra=out)
 
 
 # name -> phase(card, profile_steps), in running order; a phase that runs a

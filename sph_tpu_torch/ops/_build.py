@@ -36,8 +36,8 @@ FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 KINDS = ("density", "rho_star", "viscsurf", "paccel", "boundary", "membrane")
 # the first designs of the redesigned kernels, for chip_smoke.py's
 # comparison only
-PREV = ("rho_star_prev", "paccel_prev", "viscsurf_prev", "spring_prev",
-        "boundary_prev", "membrane_prev")
+PREV = ("density_prev", "rho_star_prev", "paccel_prev", "viscsurf_prev",
+        "spring_prev", "boundary_prev", "membrane_prev")
 
 _lib = None
 

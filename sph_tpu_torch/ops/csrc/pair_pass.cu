@@ -15,12 +15,13 @@
 // The plain PyTorch versions in sph_tpu_torch/ops/pair_kernels.py compute
 // the same sums and are what the kernels are checked against.
 //
-// Two drivers and a list kernel. pair_pass<P, Gated> (the first design)
-// runs Density; pair_ring<P, R, TPR, STAGES, ROWS_CTA, Exit, Gated> runs
-// RhoStar, ViscSurf, PAccel, Boundary and Membrane; spring_list runs Spring.
-// The functors below are shared by the drivers, and pair_pass keeps the
-// first designs of the six redesigned kernels for chip_smoke.py's
-// comparison (the sph_pair_<kind>_prev entry points).
+// Two drivers and a list kernel. pair_ring<P, R, TPR, STAGES, ROWS_CTA,
+// Exit, Gated> runs Density, RhoStar, ViscSurf, PAccel, Boundary and
+// Membrane; spring_list runs Spring. pair_pass<P, Gated>, the first design,
+// runs no pass of the engines: it keeps the first designs of the seven
+// redesigned kernels for chip_smoke.py's comparison (the
+// sph_pair_<kind>_prev entry points). The functors below are shared by the
+// drivers.
 //
 // pair_pass: one CTA per own block, one thread per own row (blockDim =
 // block).
@@ -75,16 +76,18 @@
 // outputs: a few MB, a few microseconds, so its time is the launch's.
 //
 // pair_ring, for the kernels that take most of a step (PAccel 6, RhoStar
-// 12, ViscSurf 2, Boundary 1 and Membrane 1 launches a fastw worm step).
+// 12, ViscSurf 2, Boundary 1 and Membrane 1 launches a fastw worm step;
+// Density 4 a fast-engine step, 32 % of the device-bound dam-break's).
 // What held them back in pair_pass: (1) on the worm's launch shapes (510
 // and ~208 blocks of 256 rows, 3-4 tiles each) one CTA a block leaves the
-// card in one partial wave set by its heaviest blocks; (2) one scalar LDS a field a
-// pair (5 against ~25 FP32 instructions in PAccel, 3 against ~10 in
-// RhoStar, 7 in ViscSurf and Boundary) takes issue slots from the FP32
-// pipe that bounds them; (3) tiles staged by plain loads and two barriers,
-// not overlapped with compute; (4) PAccel, ViscSurf and Boundary ran their
-// bodies (and ViscSurf and Boundary their IEEE sqrtf) for every candidate
-// pair, ~97 % of them beyond h (Boundary's weight reaches only r0 = h/2);
+// card in one partial wave set by its heaviest blocks; (2) one scalar LDS
+// a field a pair (5 against ~25 FP32 instructions in PAccel, 3 against ~10
+// in RhoStar and Density, 7 in ViscSurf and Boundary) takes issue slots
+// from the FP32 pipe that bounds them; (3) tiles staged by plain loads and
+// two barriers, not overlapped with compute; (4) PAccel, ViscSurf and
+// Boundary ran their bodies (and ViscSurf and Boundary their IEEE sqrtf)
+// for every candidate pair, ~97 % of them beyond h (Boundary's weight
+// reaches only r0 = h/2);
 // (5) Membrane staged 45 rows a tile (46 KB: few CTAs an SM, ~45 scalar
 // loads a thread a tile) where the distance test that ends almost every
 // pair reads 3. The design:
@@ -186,7 +189,8 @@ struct RegCol {
 
 struct Density {
   // slab rows: x, y, z (the main pack, or the predicted positions)
-  __host__ __device__ constexpr int slab_rows() const { return 3; }
+  static constexpr int kRows = 3, kRow0 = 0;
+  __host__ __device__ constexpr int slab_rows() const { return kRows; }
   struct Own { float x, y, z; };
   struct Acc { float s; };
   float h2, self3, inv_h6, c_rho;
@@ -194,16 +198,27 @@ struct Density {
   __device__ Own load(const float* own, long long w, long long i) const {
     return {own[i], own[w + i], own[2 * w + i]};
   }
-  __device__ void pair(const Own& o, const float* t, int ccol, int j,
-                       Acc& a) const {
-    const float dx = o.x - t[j];
-    const float dy = o.y - t[ccol + j];
-    const float dz = o.z - t[2 * ccol + j];
-    const float q = fmaxf(h2 - (dx * dx + dy * dy + dz * dz), 0.0f);
+  // Exit: skip the pair where !(h2 - r2 > 0), tested on the f32 h2 - r2
+  // that q is computed from. There q = fmaxf(h2 - r2, 0) is a zero, so is
+  // the term q q q, and adding a zero to the accumulator (which starts at
+  // +0) changes nothing: the sums are bitwise those without the exit
+  template <bool Exit, class T>
+  __device__ void pair_at(const Own& o, const T& t, Acc& a) const {
+    const float dx = o.x - t(0);
+    const float dy = o.y - t(1);
+    const float dz = o.z - t(2);
+    const float d = h2 - (dx * dx + dy * dy + dz * dz);
+    if (Exit && !(d > 0.0f)) return;
+    const float q = fmaxf(d, 0.0f);
     a.s += q * q * q;
   }
+  __device__ void pair(const Own& o, const float* t, int ccol, int j,
+                       Acc& a) const {
+    pair_at<false>(o, TileCol{t, ccol, j}, a);
+  }
   // the wrapper's epilogue, fused: the self term (included in the sum) is
-  // subtracted exactly as f32 (h2 h2) h2, then scaled and clamped
+  // subtracted exactly as f32 (h2 h2) h2, then scaled and clamped. A row
+  // without a tile (a gated-out wall block, a phantom) sums 0: c_rho
   __device__ void store(float* out, long long n, long long i,
                         const Acc& a) const {
     out[i] = c_rho * fmaxf((a.s - self3) * inv_h6, 1.0f);
@@ -895,9 +910,9 @@ int launch_ring(const P& p, const float* own, long long own_w,
 // The shipped configuration of a ring kind, from ops/pair_kernels.py RING
 // (the -DSPH_<KIND>_<FIELD> defines of ops/_build.py): R, TPR, STAGES,
 // ROWS_CTA, Exit.
-#if !defined(SPH_RHO_STAR_ROWS) || !defined(SPH_VISCSURF_ROWS) || \
-    !defined(SPH_PACCEL_ROWS) || !defined(SPH_BOUNDARY_ROWS) ||         \
-    !defined(SPH_MEMBRANE_ROWS)
+#if !defined(SPH_DENSITY_ROWS) || !defined(SPH_RHO_STAR_ROWS) ||      \
+    !defined(SPH_VISCSURF_ROWS) || !defined(SPH_PACCEL_ROWS) ||         \
+    !defined(SPH_BOUNDARY_ROWS) || !defined(SPH_MEMBRANE_ROWS)
 #error "build with the ring defines of sph_tpu_torch/ops/_build.py"
 #endif
 #define SPH_RING(K)                                                          \
@@ -925,7 +940,9 @@ int launch_ring(const P& p, const float* own, long long own_w,
 extern "C" {
 
 int sph_pair_density(SPH_PAIR_ARGS) {
-  return SPH_GATED((Density{c0, c1, c2, c3}));
+  const Density p{c0, c1, c2, c3};
+  return sub != 0 ? launch_ring<SPH_RING(DENSITY), true>(p, SPH_PAIR_FWD)
+                  : launch_ring<SPH_RING(DENSITY), false>(p, SPH_PAIR_FWD);
 }
 
 int sph_pair_rho_star(SPH_PAIR_ARGS) {
@@ -948,6 +965,10 @@ int sph_pair_paccel(SPH_PAIR_ARGS) {
 // pair_pass for the kinds the ring driver and the spring list took over,
 // kept for chip_smoke.py's in-call comparison; no wrapper or engine calls
 // these.
+int sph_pair_density_prev(SPH_PAIR_ARGS) {
+  return SPH_GATED((Density{c0, c1, c2, c3}));
+}
+
 int sph_pair_rho_star_prev(SPH_PAIR_ARGS) {
   return SPH_UNGATED(RhoStar{c0});
 }

@@ -40,10 +40,10 @@ tensors it launches the kernel (``csrc/pair_pass.cu``) or raises. Each kernel
 launch adds one to ``LAUNCHES[kind]``, a gated one to ``LAUNCHES[kind +
 "_sub"]``.
 
-Every pair pass but the density and spring ones runs on the ring driver
-(``pair_ring`` in ``csrc/pair_pass.cu``) in the configuration ``RING``
-gives: rho* (raw), viscosity/surface, pressure force, boundary and
-membrane. Their slab tiles are copied into a ring of shared-memory stages
+Every pair pass but the spring one runs on the ring driver (``pair_ring``
+in ``csrc/pair_pass.cu``) in the configuration ``RING`` gives: density
+(the time-t density and the clamped rho*), rho* (raw), viscosity/surface,
+pressure force, boundary and membrane. Their slab tiles are copied into a ring of shared-memory stages
 by 16-byte bulk copies, so their slab pack must start on a 16-byte boundary
 and have a width that is a multiple of 4, ``ccol`` and every tile offset
 (``aln``) must be multiples of 4, and a CTA's ``rows_cta`` must divide
@@ -149,7 +149,8 @@ class Ring:
 
 
 # kinds on the ring driver -> their configuration
-RING = {"rho_star": Ring(rows=2, tpr=4, stages=2, rows_cta=64),
+RING = {"density": Ring(rows=1, tpr=2, stages=2, rows_cta=64),
+        "rho_star": Ring(rows=2, tpr=4, stages=2, rows_cta=64),
         "viscsurf": Ring(rows=1, tpr=2, stages=2, rows_cta=64, exit=True),
         "paccel": Ring(rows=1, tpr=4, stages=2, rows_cta=64, exit=True),
         "boundary": Ring(rows=1, tpr=2, stages=2, rows_cta=64, exit=True),
@@ -214,22 +215,20 @@ class PairPass:
 
     @property
     def staged_rows(self) -> int:
-        """Slab rows a kernel launch stages in shared memory a tile: on the
-        ring driver those from ``_RING_ROW0`` (0 by default) up to the last
-        row the pass reads, on the first driver every row it reads, none
-        for the spring list kernel."""
+        """Slab rows a kernel launch stages in shared memory a tile: those
+        from ``_RING_ROW0`` (0 by default) up to the last row the pass
+        reads, none for the spring list kernel."""
         if self.kind == "spring":
             return 0
-        if self.kind not in RING:
-            return self.slab_rows
         return self.slab_rows - _RING_ROW0.get(self.kind, 0)
 
     @property
     def shared_bytes(self) -> int:
-        """Dynamic shared memory of one kernel launch: one staged tile, on
-        the ring driver its ring of ``RING[kind].stages`` tiles."""
-        ring = RING.get(self.kind)
-        return 4 * self.staged_rows * self.ccol * (ring.stages if ring else 1)
+        """Dynamic shared memory of one kernel launch: its ring of
+        ``RING[kind].stages`` staged tiles."""
+        if self.kind == "spring":
+            return 0
+        return 4 * self.staged_rows * self.ccol * RING[self.kind].stages
 
     def __call__(self, tables, own_pack, slab_pack):
         dev = own_pack.device.type

@@ -1,5 +1,6 @@
-"""The host side of the ring driver that runs the rho* (raw), viscosity/
-surface, pressure-force, boundary and membrane kernels (``pair_ring`` in
+"""The host side of the ring driver that runs the density (the time-t
+density and the clamped rho*), rho* (raw), viscosity/surface,
+pressure-force, boundary and membrane kernels (``pair_ring`` in
 ``sph_tpu_torch/ops/csrc/pair_pass.cu``): the checks of its preconditions,
 its configuration's way into the build, the shared memory it reports (the
 membrane kernel stages only its pack's x(t+1) rows), the near-pair count
@@ -37,7 +38,10 @@ from test_torch_pair_kernels import (H, elastic, recorded,  # noqa: F401
 H100_SMEM = 232_448   # the most dynamic shared memory a CTA may take
 RING_NAMES = ["raw_mm", "raw_ms", "raw_sm", "visc_mm", "visc_ms", "pacc_mm",
               "pacc_ms", "bnd_ms"]
-FAST_RING_NAMES = ["fast_viscsurf", "fast_paccel", "fast_boundary"]
+# the fast engine's launches; fast_rho_star is the density kind on the
+# iteration pack
+FAST_RING_NAMES = ["fast_density", "fast_rho_star", "fast_viscsurf",
+                   "fast_paccel", "fast_boundary"]
 # the engines' membrane launches (``membrane_box``) and the synthetic ones
 MEMBRANE_NAMES = ["mem_ms", "fast_membrane", "el_mem_ms"]
 # the ring kinds with an exact early exit
@@ -130,6 +134,7 @@ def test_membrane_box_engines_hand_the_ring_what_it_copies(membrane_box):
 
 
 @pytest.mark.parametrize("name", ["raw_mm", "visc_ms", "pacc_ms",
+                                  "fast_density", "fast_rho_star",
                                   "fast_viscsurf", "fast_paccel", "bnd_ms",
                                   "fast_boundary", "mem_ms", "fast_membrane"])
 def test_check_refuses_what_the_ring_cannot_copy(ring, name):
@@ -149,6 +154,7 @@ def test_check_refuses_what_the_ring_cannot_copy(ring, name):
 
 
 @pytest.mark.parametrize("name", ["raw_ms", "visc_mm", "pacc_mm",
+                                  "fast_density", "fast_rho_star",
                                   "fast_paccel", "bnd_ms", "fast_boundary",
                                   "mem_ms", "fast_membrane"])
 def test_check_refuses_a_block_the_ctas_do_not_tile(ring, name):
@@ -163,12 +169,15 @@ def test_check_refuses_a_block_the_ctas_do_not_tile(ring, name):
 
 
 def test_first_driver_kinds_keep_their_inputs(recorded_fast):
-    """The kind on the first driver (density) stages tiles with plain
-    loads: a pack off a 16-byte boundary is still its to take."""
+    """Every pair kind but spring (a list kernel) runs on the ring driver,
+    density too: its pack off a 16-byte boundary, which the first driver
+    staged with plain loads, is now refused before a launch."""
     p, tables, own, slab = recorded_fast[1]["density"]
-    assert p.kind not in pk.RING
-    assert set(pk._SPECS) - set(pk.RING) == {"density", "spring"}
-    pk._check(p, tables, own, misaligned(slab))
+    assert p.kind in pk.RING
+    assert set(pk._SPECS) - set(pk.RING) == {"spring"}
+    pk._check(p, tables, own, slab)
+    with pytest.raises(ValueError, match="16-byte"):
+        pk._check(p, tables, own, misaligned(slab))
 
 
 @pytest.mark.parametrize("kind", sorted(pk.RING))
@@ -190,17 +199,21 @@ def test_ring_config_reaches_the_build(kind):
 
 
 @pytest.mark.parametrize("kind,ccol", [
+    ("density", 256), ("density", 128),
     ("rho_star", 512), ("rho_star", 256), ("viscsurf", 512),
     ("viscsurf", 256), ("paccel", 512), ("paccel", 256), ("boundary", 256),
     ("boundary", 128), ("membrane", 256), ("membrane", 128)])
 def test_shared_bytes_is_the_ring(kind, ccol):
-    """At the worm's tile widths (ccol 512, ccol_c 256) a launch takes the
-    ring's stages x staged rows x ccol floats, under the card's limit: the
-    slab rows the pass reads, but for the membrane pass only its x(t+1)
-    rows (3 of the 45 it reads, where the first design staged 45); the
-    first driver's kind still takes one tile."""
+    """At the worm's tile widths (ccol 512, ccol_c 256) and the density's
+    (the dam-break's 256, the tests' 128) a launch takes the ring's stages
+    x staged rows x ccol floats, under the card's limit: the slab rows the
+    pass reads, but for the membrane pass only its x(t+1) rows (3 of the
+    45 it reads, where the first design staged 45)."""
     kw = dict(block=256, ccol=ccol, n_blocks=8, inv_h2=1.0, c_rho=1.0)
-    if kind == "rho_star":
+    if kind == "density":
+        p = pk.make_density_pass(**kw)
+        rows = staged = 3
+    elif kind == "rho_star":
         p = pk.make_rho_star_pass(raw=True, **kw)
         rows = staged = 3
     elif kind == "viscsurf":
@@ -218,8 +231,6 @@ def test_shared_bytes_is_the_ring(kind, ccol):
     assert p.slab_rows == rows and p.staged_rows == staged
     assert p.shared_bytes == pk.RING[kind].stages * staged * ccol * 4
     assert p.shared_bytes < H100_SMEM
-    den = pk.make_density_pass(**kw)
-    assert den.shared_bytes == den.slab_rows * ccol * 4
 
 
 def test_membrane_staged_rows_match_the_kernel():
@@ -230,9 +241,9 @@ def test_membrane_staged_rows_match_the_kernel():
     consts = {m[0]: (int(m[1]), int(m[2])) for m in re.findall(
         r"struct (\w+) \{[^}]*?static constexpr int kRows = (\d+), "
         r"kRow0 = (\d+);", src, re.S)}
-    assert consts == {"RhoStar": (3, 0), "ViscSurf": (7, 0),
-                      "PAccel": (5, 0), "Boundary": (7, 0),
-                      "Membrane": (3, pk.PMM_XN)}
+    assert consts == {"Density": (3, 0), "RhoStar": (3, 0),
+                      "ViscSurf": (7, 0), "PAccel": (5, 0),
+                      "Boundary": (7, 0), "Membrane": (3, pk.PMM_XN)}
     p = pk.make_membrane_pass(block=256, ccol=256, n_blocks=1, r0=1.0)
     assert p.slab_rows - p.staged_rows == pk.PMM_XN
 
