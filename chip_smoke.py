@@ -600,40 +600,72 @@ def time_ms(fn, reps, warm=True):
     return t0.elapsed_time(t1) / reps
 
 
+def profiled_kernels(run):
+    """name -> (launches, device microseconds) of the CUDA kernels that
+    ``run()`` launches under one torch.profiler session."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return {e.key: (e.count, e.self_device_time_total)
+            for e in prof.key_averages() if e.device_type == cuda}
+
+
 def device_ms(fn, reps=50, tries=3, flush=None):
     """Mean device milliseconds a call of the one CUDA kernel it launches
     (torch.profiler over ``reps`` calls, after one untimed call), or None
     unless the profiler recorded exactly ``reps`` kernels in one of
     ``tries`` sessions: sessions were seen to drop kernel records now and
-    then, and always after a long profiled window in the same process
-    (why ``--profile-steps`` runs last). With ``flush`` (a tensor larger
-    than the card's 50 MB L2) it is overwritten before every call, so each
-    call finds its inputs in device memory, not in L2; the kernels that
-    write it are left out of the sum."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
-    cuda = torch.autograd.DeviceType.CUDA
-    skip = set()
+    then, always after a long profiled window in the same process (why
+    ``--profile-steps`` runs last), and in one run every session after the
+    81st (why phase 19 times both designs in one session). With ``flush`` (a
+    tensor larger than the card's 50 MB L2) it is overwritten before every
+    call, so each call finds its inputs in device memory, not in L2; the
+    kernels that write it are left out of the sum."""
+    skip = ()
     if flush is not None:
-        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-            flush.fill_(1.0)
-            torch.cuda.synchronize()
-        skip = {e.key for e in prof.key_averages() if e.device_type == cuda}
+        skip = profiled_kernels(lambda: flush.fill_(1.0))
     fn()
     torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            if flush is not None:
+                flush.fill_(1.0)
+            fn()
+
     for _ in range(tries):
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if flush is not None:
-                    flush.fill_(1.0)
-                fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == cuda and e.key not in skip]
-        if sum(e.count for e in kernels) == reps:
-            return sum(e.self_device_time_total for e in kernels) / reps / 1e3
+        kernels = [v for k, v in profiled_kernels(run).items()
+                   if k not in skip]
+        if sum(n for n, _ in kernels) == reps:
+            return sum(us for _, us in kernels) / reps / 1e3
     return None
+
+
+def ab_device_ms(prev, new, reps=50, tries=3):
+    """(first design, new) mean device milliseconds a call, as
+    ``device_ms`` takes them, in one profiler session: ``reps`` calls of
+    ``prev`` (a ``pair_pass`` kernel), then of ``new``; None for each
+    unless the session recorded ``reps`` of both."""
+    prev()
+    new()
+    torch.cuda.synchronize()
+
+    def run():
+        for f in (prev, new):
+            for _ in range(reps):
+                f()
+
+    for _ in range(tries):
+        kernels = profiled_kernels(run)
+        split = [[v for k, v in kernels.items() if ("pair_pass" in k) == old]
+                 for old in (True, False)]
+        if all(sum(n for n, _ in g) == reps for g in split):
+            return [sum(us for _, us in g) / reps / 1e3 for g in split]
+    return [None, None]
 
 
 def engine_run(scene, params, dev, engine, steps, cfg_kw):
@@ -1878,9 +1910,8 @@ def ab_phase(card, profile_steps):
             prev_ms, new_ms = (ts[0] + ts[3]) / 2, (ts[1] + ts[2]) / 2
             # device time without the host's dispatch, which sets the
             # CUDA-event time of the short launches
-            dev = [device_ms(f) for f in (
-                lambda: prev_call(p, tables, own, slab),
-                lambda: pk._call(p, tables, own, slab))]
+            dev = ab_device_ms(lambda: prev_call(p, tables, own, slab),
+                               lambda: pk._call(p, tables, own, slab))
             if ring is None:
                 # the spring list's bound, the first design's beside it
                 data_work = dict(spring=int((slab[3:3 + p.n_slots] >= 0)

@@ -753,7 +753,12 @@ __device__ __forceinline__ void ring_column(const P& p,
 // block, ROWS_CTA / R * TPR threads); Exit: the functor's early exit;
 // Gated: the subgroup gate. The threads u * TPR .. u * TPR + TPR - 1 share
 // rows u, u + SPAN, ... (SPAN = ROWS_CTA / R), so each warp covers 32 / TPR
-// consecutive rows.
+// consecutive rows; in the gated form rows u R .. u R + R - 1, so a
+// thread's rows lie in one subgroup (R divides sub) and the gate skips a
+// tile for all of them (rows u and u + SPAN sit in different subgroups: a
+// thread would stream every tile that either group takes), and a warp's
+// 32 R / TPR rows lie in one subgroup where that many divide sub. A row's
+// sum does not depend on which thread holds it.
 template <class P, int R, int TPR, int STAGES, int ROWS_CTA, bool Exit,
           bool Gated>
 __global__ void __launch_bounds__(ROWS_CTA / R * TPR)
@@ -773,6 +778,10 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
   const int r_first = (blockIdx.x - b * splits) * ROWS_CTA;
   const int u = threadIdx.x / TPR;
   const int part = threadIdx.x - u * TPR;
+  // the row of the block that this thread's row k is
+  const auto row_of = [&](int k) {
+    return r_first + (Gated ? u * R + k : k * SPAN + u);
+  };
 
   typename P::Own o[R];
   typename P::Acc acc[R];
@@ -780,14 +789,14 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
   int wlo[Gated ? R : 1][3], whi[Gated ? R : 1][3];
 #pragma unroll
   for (int k = 0; k < R; ++k) {
-    const long long i = (long long)b * block + r_first + k * SPAN + u;
+    const long long i = (long long)b * block + row_of(k);
     const long long row = (long long)ob[0] + i;
     live[k] = row >= 0 && row < own_w;
     o[k] = p.load(own, own_w, live[k] ? row : 0);
     acc[k] = typename P::Acc{};
     if (Gated) {
       const int ng = block / sub;
-      const int g = (r_first + k * SPAN + u) / sub;
+      const int g = row_of(k) / sub;
       for (int d = 0; d < 3; ++d) {
         wlo[k][d] = glo[(3 * b + d) * ng + g];
         whi[k][d] = ghi[(3 * b + d) * ng + g];
@@ -867,8 +876,7 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
     }
     if (part == 0) {
       if (!live[k]) acc[k] = typename P::Acc{};
-      p.store(out, n_pad, (long long)b * block + r_first + k * SPAN + u,
-              acc[k]);
+      p.store(out, n_pad, (long long)b * block + row_of(k), acc[k]);
     }
   }
 }
