@@ -730,9 +730,9 @@ __device__ __forceinline__ void fetch_tile(const float* slab, long long slab_w,
 }
 
 // One column C of the four a float4 load holds (slab column col + C), for
-// each of a thread's R rows (in the gated form only the rows whose group
-// takes the tile).
-template <int C, bool Exit, bool Gated, int R, class P>
+// each of a thread's R rows (with Each only the rows whose group takes the
+// tile).
+template <int C, bool Exit, bool Each, int R, class P>
 __device__ __forceinline__ void ring_column(const P& p,
                                             const typename P::Own* o,
                                             const float4* v,
@@ -743,7 +743,7 @@ __device__ __forceinline__ void ring_column(const P& p,
   const RegCol<C> t{v, slab, slab_w, col + C};
 #pragma unroll
   for (int k = 0; k < R; ++k)
-    if (!Gated || on[k]) p.template pair_at<Exit>(o[k], t, acc[k]);
+    if (!Each || on[k]) p.template pair_at<Exit>(o[k], t, acc[k]);
 }
 
 // R: own rows a thread; TPR: threads a row (part q of a row's TPR threads
@@ -753,12 +753,15 @@ __device__ __forceinline__ void ring_column(const P& p,
 // block, ROWS_CTA / R * TPR threads); Exit: the functor's early exit;
 // Gated: the subgroup gate. The threads u * TPR .. u * TPR + TPR - 1 share
 // rows u, u + SPAN, ... (SPAN = ROWS_CTA / R), so each warp covers 32 / TPR
-// consecutive rows; in the gated form rows u R .. u R + R - 1, so a
-// thread's rows lie in one subgroup (R divides sub) and the gate skips a
-// tile for all of them (rows u and u + SPAN sit in different subgroups: a
-// thread would stream every tile that either group takes), and a warp's
+// consecutive rows; in the gated form with R > 1 (CONSEC) rows u R ..
+// u R + R - 1 instead, so a thread's rows lie in one subgroup (R must
+// divide sub): the thread keeps one set of windows and computes a tile for
+// all its rows or for none, with no test a row and column (rows u and
+// u + SPAN sit in different subgroups: a thread streamed every tile that
+// either group takes, and tested each row at every column), and a warp's
 // 32 R / TPR rows lie in one subgroup where that many divide sub. A row's
-// sum does not depend on which thread holds it.
+// sum does not depend on which thread holds it; a row that is not live
+// computes a sum that is thrown away.
 template <class P, int R, int TPR, int STAGES, int ROWS_CTA, bool Exit,
           bool Gated>
 __global__ void __launch_bounds__(ROWS_CTA / R * TPR)
@@ -778,25 +781,29 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
   const int r_first = (blockIdx.x - b * splits) * ROWS_CTA;
   const int u = threadIdx.x / TPR;
   const int part = threadIdx.x - u * TPR;
-  // the row of the block that this thread's row k is
-  const auto row_of = [&](int k) {
-    return r_first + (Gated ? u * R + k : k * SPAN + u);
-  };
+  // a thread's rows: consecutive (u R + k) in the gated form with R > 1,
+  // else u + k SPAN (the expressions below spell out both); EACH: the gate
+  // is tested for each row; NW: the window sets a thread keeps
+  constexpr bool CONSEC = Gated && R > 1;
+  constexpr bool EACH = Gated && !CONSEC;
+  constexpr int NW = EACH ? R : 1;
 
   typename P::Own o[R];
   typename P::Acc acc[R];
   bool live[R];
-  int wlo[Gated ? R : 1][3], whi[Gated ? R : 1][3];
+  int wlo[NW][3], whi[NW][3];
 #pragma unroll
   for (int k = 0; k < R; ++k) {
-    const long long i = (long long)b * block + row_of(k);
+    const long long i = CONSEC ? (long long)b * block + r_first + u * R + k
+                               : (long long)b * block + r_first + k * SPAN + u;
     const long long row = (long long)ob[0] + i;
     live[k] = row >= 0 && row < own_w;
     o[k] = p.load(own, own_w, live[k] ? row : 0);
     acc[k] = typename P::Acc{};
-    if (Gated) {
+    if (Gated && k < NW) {
       const int ng = block / sub;
-      const int g = row_of(k) / sub;
+      const int g = (CONSEC ? r_first + u * R + k
+                            : r_first + k * SPAN + u) / sub;
       for (int d = 0; d < 3; ++d) {
         wlo[k][d] = glo[(3 * b + d) * ng + g];
         whi[k][d] = ghi[(3 * b + d) * ng + g];
@@ -830,9 +837,10 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
       const long long end = off + ccol;
 #pragma unroll
       for (int k = 0; k < R; ++k) {
-        on[k] = live[k] && ((whi[k][0] > off && wlo[k][0] < end) ||
-                            (whi[k][1] > off && wlo[k][1] < end) ||
-                            (whi[k][2] > off && wlo[k][2] < end));
+        const int w = CONSEC ? 0 : k;
+        on[k] = live[k] && ((whi[w][0] > off && wlo[w][0] < end) ||
+                            (whi[w][1] > off && wlo[w][1] < end) ||
+                            (whi[w][2] > off && wlo[w][2] < end));
         any = any || on[k];
       }
     }
@@ -847,10 +855,10 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
         for (int f = 0; f < NF; ++f)
           v[f] = *reinterpret_cast<const float4*>(t + f * ccol + j);
         const long long col = off + j;
-        ring_column<0, Exit, Gated, R>(p, o, v, slab, slab_w, col, acc, on);
-        ring_column<1, Exit, Gated, R>(p, o, v, slab, slab_w, col, acc, on);
-        ring_column<2, Exit, Gated, R>(p, o, v, slab, slab_w, col, acc, on);
-        ring_column<3, Exit, Gated, R>(p, o, v, slab, slab_w, col, acc, on);
+        ring_column<0, Exit, EACH, R>(p, o, v, slab, slab_w, col, acc, on);
+        ring_column<1, Exit, EACH, R>(p, o, v, slab, slab_w, col, acc, on);
+        ring_column<2, Exit, EACH, R>(p, o, v, slab, slab_w, col, acc, on);
+        ring_column<3, Exit, EACH, R>(p, o, v, slab, slab_w, col, acc, on);
       }
     }
     if (s + STAGES < n_s) {
@@ -876,7 +884,10 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
     }
     if (part == 0) {
       if (!live[k]) acc[k] = typename P::Acc{};
-      p.store(out, n_pad, (long long)b * block + row_of(k), acc[k]);
+      p.store(out, n_pad,
+              CONSEC ? (long long)b * block + r_first + u * R + k
+                     : (long long)b * block + r_first + k * SPAN + u,
+              acc[k]);
     }
   }
 }
@@ -893,7 +904,8 @@ int launch_ring(const P& p, const float* own, long long own_w,
   static_assert(STAGES >= 1 && ROWS_CTA % R == 0 && nthr % 32 == 0 &&
                     nthr <= 512, "ring configuration");
   if (n_blocks <= 0) return (int)cudaGetLastError();
-  if (Gated && (sub <= 0 || block % sub != 0 || !glo || !ghi))
+  if (Gated && (sub <= 0 || block % sub != 0 || sub % R != 0 || !glo ||
+                !ghi))
     return (int)cudaErrorInvalidValue;
   if (block % ROWS_CTA != 0) return (int)cudaErrorInvalidConfiguration;
   // the bulk copies move 16-byte units between 16-byte-aligned addresses
