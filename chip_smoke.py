@@ -642,6 +642,8 @@ def device_ms(fn, reps=50, tries=3, flush=None):
                    if k not in skip]
         if sum(n for n, _ in kernels) == reps:
             return sum(us for _, us in kernels) / reps / 1e3
+    print(f"  device time not measured: the profiler recorded "
+          f"{[n for n, _ in kernels]} kernels for {reps} calls", flush=True)
     return None
 
 
@@ -665,6 +667,9 @@ def ab_device_ms(prev, new, reps=50, tries=3):
                  for old in (True, False)]
         if all(sum(n for n, _ in g) == reps for g in split):
             return [sum(us for _, us in g) / reps / 1e3 for g in split]
+    print(f"  device time not measured: the profiler recorded "
+          f"{[[n for n, _ in g] for g in split]} kernels for {reps} calls "
+          "of each", flush=True)
     return [None, None]
 
 

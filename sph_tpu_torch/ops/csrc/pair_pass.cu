@@ -122,6 +122,19 @@
 //    columns) and reads a near pair's 42 triangle floats from device memory
 //    by the read-only path (RegCol::slab; the worm's whole pack is ~2 MB
 //    and stays in L2).
+// Density (the time-t density and rho*, 4 launches a fast-engine step, a
+// third of the device-bound dam-break's step on pair_pass) is RhoStar's
+// sum with the clamp fused into store. What bounds it on this card: the
+// FP32 pipe's issue slots. A pair is 13 flops, which chip_smoke.py's bound
+// charges at 67 TFLOP/s, an FFMA counting two; but it issues ~10
+// FP32-pipe instructions, three of them FFMAs, so the pipe caps it at
+// ~13 / 20 = 0.65 of that bound. pair_pass added one scalar LDS a field a
+// pair, tiles staged between two barriers and one CTA of 256 threads a
+// block. The ring reads 3 float4 for 4 columns shared by R = 2 rows (3/8
+// LDS a pair), overlaps the tile copies with the sums and takes 128 rows a
+// CTA, TPR 2 (its matrix, PERF.md; the dam-break's 3,592 blocks fill the
+// card, TPR 4 won only on the fast worm's 912). Gated, a thread's two rows
+// share one subgroup (CONSEC in pair_ring).
 // Each row meets its tiles in table order and each thread its columns in
 // ascending order, adding the functor's f32 expressions as written. With
 // TPR 1 a row's sums are bitwise those of pair_pass; with TPR > 1 they
@@ -130,7 +143,8 @@
 // TPR, ROWS_CTA and Exit were chosen by timing a matrix of them on the card
 // (PERF.md): R 1-2, TPR 4 and 64 rows a CTA won on the worm's launches, R 4
 // spilled and lost (ViscSurf, Boundary and Membrane: their own matrices,
-// PERF.md; TPR 2 won for the three, and 128 rows a CTA for Membrane). The
+// PERF.md; TPR 2 won for the three, and 128 rows a CTA for Membrane;
+// Density: R 2, TPR 2, 128 rows a CTA on the dam-break). The
 // shipped values are owned by ops/pair_kernels.py (RING) and reach this
 // file as -DSPH_<KIND>_<FIELD> defines from ops/_build.py.
 //
@@ -140,8 +154,9 @@
 // rows g*sub .. (g+1)*sub-1 compute a tile only when its columns
 // [off, off + ccol) overlap one of the group's three dz-band windows
 // [glo, ghi) (tables at (3b + dz) * (block/sub) + g). Each thread loads its
-// group's six window bounds into registers once (pair_ring: six a row);
-// per tile the test is six integer compares. What it saves is the pair
+// group's six window bounds into registers once (pair_ring: six a row, or
+// six a thread where its rows share a subgroup); per tile the test is six
+// integer compares. What it saves is the pair
 // arithmetic that bounds these passes: on the worm the JAX records count
 // 1,617 -> 819 computed columns a particle at sub 32, ccol 128
 // (sph_tpu/core/fast.py:55-60). At sub 32 a group is one warp and the skip
@@ -198,18 +213,15 @@ struct Density {
   __device__ Own load(const float* own, long long w, long long i) const {
     return {own[i], own[w + i], own[2 * w + i]};
   }
-  // Exit: skip the pair where !(h2 - r2 > 0), tested on the f32 h2 - r2
-  // that q is computed from. There q = fmaxf(h2 - r2, 0) is a zero, so is
-  // the term q q q, and adding a zero to the accumulator (which starts at
-  // +0) changes nothing: the sums are bitwise those without the exit
+  // t(f): field f of the column (see TileCol, RegCol). No exit: one
+  // skipping the pair where h2 - r2 <= 0 (exact: the term is a zero) lost
+  // 2-4 % on the card, the body after the test being ~4 instructions
   template <bool Exit, class T>
   __device__ void pair_at(const Own& o, const T& t, Acc& a) const {
     const float dx = o.x - t(0);
     const float dy = o.y - t(1);
     const float dz = o.z - t(2);
-    const float d = h2 - (dx * dx + dy * dy + dz * dz);
-    if (Exit && !(d > 0.0f)) return;
-    const float q = fmaxf(d, 0.0f);
+    const float q = fmaxf(h2 - (dx * dx + dy * dy + dz * dz), 0.0f);
     a.s += q * q * q;
   }
   __device__ void pair(const Own& o, const float* t, int ccol, int j,

@@ -149,7 +149,7 @@ class Ring:
 
 
 # kinds on the ring driver -> their configuration
-RING = {"density": Ring(rows=1, tpr=2, stages=2, rows_cta=64),
+RING = {"density": Ring(rows=2, tpr=2, stages=2, rows_cta=128),
         "rho_star": Ring(rows=2, tpr=4, stages=2, rows_cta=64),
         "viscsurf": Ring(rows=1, tpr=2, stages=2, rows_cta=64, exit=True),
         "paccel": Ring(rows=1, tpr=4, stages=2, rows_cta=64, exit=True),
@@ -795,6 +795,10 @@ def _check(p: PairPass, tables, own, slab):
     if p.block % ring.rows_cta:
         raise ValueError(f"{p.kind}: the ring kernel takes {ring.rows_cta} "
                          f"rows a CTA, which do not divide block {p.block}")
+    if p.gated and p.sub % ring.rows:
+        raise ValueError(f"{p.kind}: the gated ring kernel keeps a thread's "
+                         f"{ring.rows} rows in one subgroup, which sub "
+                         f"{p.sub} does not allow")
     # the ring driver's bulk copies: 16-byte units, 16-byte aligned. Tables
     # on the card are not read here (a host sync a launch): the engines'
     # aln are multiples of ALIGN by construction
