@@ -615,16 +615,16 @@ def profiled_kernels(run):
 
 
 def device_ms(fn, reps=50, tries=3, flush=None):
-    """Mean device milliseconds a call of the one CUDA kernel it launches
-    (torch.profiler over ``reps`` calls, after one untimed call), or None
-    unless the profiler recorded exactly ``reps`` kernels in one of
-    ``tries`` sessions: sessions were seen to drop kernel records now and
-    then, always after a long profiled window in the same process (why
-    ``--profile-steps`` runs last), and in one run every session after the
-    81st (why phase 19 times both designs in one session). With ``flush`` (a
-    tensor larger than the card's 50 MB L2) it is overwritten before every
-    call, so each call finds its inputs in device memory, not in L2; the
-    kernels that write it are left out of the sum."""
+    """Mean device milliseconds of the one CUDA kernel a call of ``fn``
+    launches: torch.profiler over ``reps`` calls (after one untimed call),
+    the mean over the kernel records it kept, or None unless one of
+    ``tries`` sessions kept between half of them and all. Sessions drop
+    records: in one run, after the first few sessions of the process,
+    the first kernel of every session; after a long profiled window in the
+    same process, many (why ``--profile-steps`` runs last). With ``flush``
+    (a tensor larger than the card's 50 MB L2) it is overwritten before
+    every call, so each call finds its inputs in device memory, not in L2;
+    the kernels that write it are left out."""
     skip = ()
     if flush is not None:
         skip = profiled_kernels(lambda: flush.fill_(1.0))
@@ -638,20 +638,30 @@ def device_ms(fn, reps=50, tries=3, flush=None):
             fn()
 
     for _ in range(tries):
-        kernels = [v for k, v in profiled_kernels(run).items()
-                   if k not in skip]
-        if sum(n for n, _ in kernels) == reps:
-            return sum(us for _, us in kernels) / reps / 1e3
-    print(f"  device time not measured: the profiler recorded "
-          f"{[n for n, _ in kernels]} kernels for {reps} calls", flush=True)
+        ms = _mean_ms([v for k, v in profiled_kernels(run).items()
+                       if k not in skip], reps)
+        if ms is not None:
+            return ms
     return None
 
 
+def _mean_ms(records, reps):
+    """Mean milliseconds of the (launches, device us) ``records`` of
+    ``reps`` one-kernel calls, or None unless between half and all of
+    the launches were recorded."""
+    n = sum(c for c, _ in records)
+    if not reps // 2 <= n <= reps:
+        print(f"  device time not measured: the profiler kept {n} kernel "
+              f"records of {reps} calls", flush=True)
+        return None
+    return sum(us for _, us in records) / n / 1e3
+
+
 def ab_device_ms(prev, new, reps=50, tries=3):
-    """(first design, new) mean device milliseconds a call, as
+    """(first design, new) mean device milliseconds a launch, as
     ``device_ms`` takes them, in one profiler session: ``reps`` calls of
     ``prev`` (a ``pair_pass`` kernel), then of ``new``; None for each
-    unless the session recorded ``reps`` of both."""
+    unless the session kept enough records of both."""
     prev()
     new()
     torch.cuda.synchronize()
@@ -663,13 +673,11 @@ def ab_device_ms(prev, new, reps=50, tries=3):
 
     for _ in range(tries):
         kernels = profiled_kernels(run)
-        split = [[v for k, v in kernels.items() if ("pair_pass" in k) == old]
-                 for old in (True, False)]
-        if all(sum(n for n, _ in g) == reps for g in split):
-            return [sum(us for _, us in g) / reps / 1e3 for g in split]
-    print(f"  device time not measured: the profiler recorded "
-          f"{[[n for n, _ in g] for g in split]} kernels for {reps} calls "
-          "of each", flush=True)
+        ms = [_mean_ms([v for k, v in kernels.items()
+                        if ("pair_pass" in k) == old], reps)
+              for old in (True, False)]
+        if None not in ms:
+            return ms
     return [None, None]
 
 
