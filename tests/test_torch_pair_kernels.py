@@ -377,9 +377,14 @@ def test_fast_pass_matches_pallas(recorded_fast, name, gated):
     """The density pass (ungated and gated) and the four gated passes of
     the fast engine against sph_tpu's passes of the same ``sub`` and the
     oracle; the gate skips some (tile, group) terms that the ungated pass
-    computes, and a gated pass sums what the gate admits."""
+    computes, and a gated pass sums what the gate admits. The density
+    kernel takes ``RING["density"].rows_cta`` = 128 rows a CTA, the block
+    of these inputs, so its plain version is held here at the shapes one
+    CTA of the kernel takes; no case at another block is needed."""
     params, calls = recorded_fast
     p, tables, own, slab = calls[name]
+    if p.kind == "density":
+        assert p.block == pk.RING["density"].rows_cta
     if not gated:
         p, tables = dataclasses.replace(p, sub=None), tables[:6]
     assert p.gated == gated

@@ -168,6 +168,23 @@ def test_check_refuses_a_block_the_ctas_do_not_tile(ring, name):
         pk._check(odd, tables[:6], own, slab)
 
 
+@pytest.mark.parametrize("name", ["fast_density", "fast_rho_star"])
+def test_check_refuses_a_sub_the_rows_do_not_divide(ring, name):
+    """The gated density kernel keeps a thread's two rows in one subgroup
+    (one window set, one tile test): a gated pass whose sub the rows a
+    thread do not divide is refused before a launch, with gate tables of
+    the right size."""
+    p, tables, own, slab = ring[name]
+    rows = pk.RING[p.kind].rows
+    assert p.gated and rows == 2 and p.sub % rows == 0
+    odd = dataclasses.replace(p, sub=rows - 1)
+    assert odd.gated
+    n_gate = 3 * p.n_blocks * (p.block // odd.sub)
+    gate = tuple(torch.zeros(n_gate, dtype=torch.int32) for _ in range(2))
+    with pytest.raises(ValueError, match=f"sub {odd.sub} does not allow"):
+        pk._check(odd, tuple(tables[:6]) + gate, own, slab)
+
+
 def test_first_driver_kinds_keep_their_inputs(recorded_fast):
     """Every pair kind but spring (a list kernel) runs on the ring driver,
     density too: its pack off a 16-byte boundary, which the first driver
