@@ -214,8 +214,9 @@ struct Density {
     return {own[i], own[w + i], own[2 * w + i]};
   }
   // t(f): field f of the column (see TileCol, RegCol). No exit: one
-  // skipping the pair where h2 - r2 <= 0 (exact: the term is a zero) lost
-  // 2-4 % on the card, the body after the test being ~4 instructions
+  // skipping the pair where h2 - r2 <= 0 (exact: the term is a zero) won
+  // in no configuration on the card (up to 4 % slower on the dam-break),
+  // the body after the test being ~4 instructions
   template <bool Exit, class T>
   __device__ void pair_at(const Own& o, const T& t, Acc& a) const {
     const float dx = o.x - t(0);
