@@ -3,7 +3,11 @@
 
     python3 chip_smoke.py [--profile-steps N] [--only PHASE,...]
 
-Phases (any failure raises and exits nonzero, printing no result):
+Phases (any failure raises and exits nonzero, printing no result). Every
+fast-engine run on the card replays each resort period from a CUDA graph
+(``core/graphed.py``, the engines' default there): the card runs that
+phases 4, 8 and 12 hold to the CPU are graphed, and the launch counts
+checked below are the counts a replay adds (its capture's):
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the Hopper pair-pass kernels from ``sph_tpu_torch/ops/
@@ -56,7 +60,8 @@ Phases (any failure raises and exits nonzero, printing no result):
    device="cuda")``, the full worm in the 30h x 20h x 250h pool, one resort
    period of warm-up re-sorted at every step (the start-up transient moves
    particles more than a cell in 30 steps) and held to the shell's capture
-   bound like the rest, then 500 timed steps. Checks: finite state, walls
+   bound like the rest, one whole period (the capture of its graph, set-up
+   left out of the timing), then 500 timed steps. Checks: finite state, walls
    bitwise still, no shell or tile overflow, drift within the shell's
    capture bound, exactly 12 rho*, 6 paccel, 2 viscsurf, 1 boundary,
    1 spring and 1 membrane launch a step, and the worm integrity gate of
@@ -98,7 +103,8 @@ Phases (any failure raises and exits nonzero, printing no result):
    and timed beside its bound on the final state;
 15. the full worm on the fast engine with the TPU-tuned tile widths (block
    256, ccol 512, ccol_c 256): 530 steps through the integrity gate, 120
-   timed steps ungated and 120 at sub 32 (11 launches a step each), the
+   timed steps ungated and, after one untimed period (its graph's
+   capture), 120 at sub 32 (11 launches a step each), the
    density pass's computed columns a particle and kernel time ungated and
    gated at ccol 128 and 512, every kernel (spring and membrane fed by the
    fast engine's packs) against its plain version and timed, ungated and
@@ -146,13 +152,28 @@ Phases (any failure raises and exits nonzero, printing no result):
    pair form's charge beside it) and the device time of an empty launch;
    the host microseconds of one pair launch; the first spring design's
    launch takes the shared-memory opt-in branch (above 48 KB). Checks no
-   spill in the shipped ring and list kernels.
+   spill in the shipped ring and list kernels;
+20. the compiled resort period: the full worm through
+   ``Simulator(engine="auto", device="cuda")`` graphed (the default) and
+   with ``cuda_graph=False``, 60 steps from the same state (the first
+   period a step at a time, then one whole period: both of the
+   Simulator's graphs), positions, velocities and activation held equal
+   bitwise (were they not, two eager runs are compared: the graphed one is
+   then held to 1e-4 only if the eager loop does not repeat itself); then
+   the fastw worm, the liquid box, the fast worm ungated and at sub 32 and
+   the dam-break, each eager and graphed in turns E G G E (120 steps a
+   run, every run at its path's launches a step), with each graph's
+   capture plus instantiate seconds, pool bytes and launches a replay;
+   and 60 profiled steps of the graphed and the eager worm: the
+   ``cudaLaunchKernel`` and ``cudaGraphLaunch`` calls a step and their
+   host time, the device busy time and idle share (at most
+   ``GRAPH_MAX_LAUNCHES`` kernel launch calls a graphed step).
 
 Each phase prints its seconds. ``--only`` runs the named phases alone
 (small: 3-4, box: 5-6, rworm: 7, rworm_engine: 8, worm: 9-10, small_fast:
 11-12, tiny_worm: 13, dam: 14, fast_worm: 15, exact: 16, bench: 17, pack:
-18, ab: 19) while iterating; the run then prints no result lines and exits
-2.
+18, ab: 19, graph: 20) while iterating; the run then prints no result
+lines and exits 2.
 
 Ends with a JSON line of per-kernel results (each kernel's numbers from the
 path that runs it at its main shapes, with its launches a step on every
@@ -290,6 +311,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 EXACT_BOX_STEPS = 10
 EXACT_WORM_STEPS = 5
 BENCH_WATCHDOG_S = 600
+
+# ---- the compiled resort period (phase 20) ----
+GRAPH_STEPS = 60      # graphed vs eager from one state: both period graphs
+GRAPH_TIMED = 120     # steps a run of the E G G E turns: 4 periods
+GRAPH_PROFILE = 60    # profiled steps, graphed and eager
+# kernel launch calls a graphed step may make: the copies into and out of
+# the graph's static buffers and the diagnostics fold, a period's, spread
+# over its 30 steps (the eager worm step makes ~444)
+GRAPH_MAX_LAUNCHES = 5
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaGraphLaunch")
 
 
 def check(ok, msg):
@@ -816,7 +847,10 @@ def worm_integrity(sim, scene, params, parts=None):
 
 def profile(sim, steps, card):
     """``steps`` main-path steps under torch.profiler: device busy share,
-    the pair kernels' share of device time, top device and host ops."""
+    the pair kernels' share of device time, top device and host ops, the
+    kernel and graph launch calls a step. Returns the wall ms a step, (calls,
+    host us) a step of each launch call (``LAUNCH_APIS``), and the busy ms
+    a step and idle share, None where the profiler recorded no kernel."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     torch.cuda.synchronize()
@@ -829,15 +863,24 @@ def profile(sim, steps, card):
     events = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in events if e.device_type == cuda]
+    host = [e for e in events if e.device_type != cuda]
     dev_us = sum(e.self_device_time_total for e in kernels)
     pair_us = sum(e.self_device_time_total for e in kernels
                   if "pair_pass" in e.key or "pair_ring" in e.key)
     print(f"profile: {steps} steps, wall {wall_us / steps / 1e3:.4f} "
           f"ms/step (profiler on) [{card}]", flush=True)
+    out = dict(wall_ms=wall_us / steps / 1e3, busy_ms=None, idle=None)
+    for api in LAUNCH_APIS:
+        calls = [e for e in host if e.key.startswith(api)]
+        out[api] = (sum(e.count for e in calls) / steps,
+                    sum(e.self_cpu_time_total for e in calls) / steps)
+        print(f"  {api}: {out[api][0]:.2f} calls/step, {out[api][1]:.1f} "
+              "us/step of host", flush=True)
     if dev_us == 0:
         print("  device time: not measured (the profiler recorded no CUDA "
               "kernels)", flush=True)
-        return
+        return out
+    out.update(busy_ms=dev_us / steps / 1e3, idle=1.0 - dev_us / wall_us)
     print(f"  device busy {dev_us / steps / 1e3:.4f} ms/step = "
           f"{dev_us / wall_us:.3f} of wall; pair kernels "
           f"{pair_us / steps / 1e3:.4f} ms/step = {pair_us / dev_us:.3f} "
@@ -846,10 +889,10 @@ def profile(sim, steps, card):
         print(f"  {e.self_device_time_total / steps:10.1f} us/step "
               f"{e.count / steps:6.1f} launches/step  {e.key[:90]}",
               flush=True)
-    host = [e for e in events if e.device_type != cuda]
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"  host {e.self_cpu_time_total / steps:10.1f} us/step "
               f"{e.count / steps:6.1f} calls/step  {e.key[:90]}", flush=True)
+    return out
 
 
 def main(argv=None) -> int:
@@ -1050,6 +1093,8 @@ def worm_phases(card, profile_steps):
     warm = check_capture(sim, "worm warm-up")
     print(f"main path: warm-up period, re-sorted every step: window drift "
           f"{warm['window_drift_h']:.4f} h", flush=True)
+    # one whole period more: the capture of its graph is set-up, untimed
+    sim.step(sim._fast_cfg.resort_every)
     dt, launches = timed_run(sim, WORM_STEPS)
     ms_step = dt * 1e3 / WORM_STEPS
     ovf = check_run(sim, scene, WORM_STEPS, launches, PER_STEP, "worm")
@@ -1400,6 +1445,8 @@ def fast_worm_phases(card, profile_steps):
               for k, v in PER_STEP_FAST_WORM.items()})):
         if s is sim32:
             sim32.state = sim.state
+            # one period first: its graph's capture is set-up, untimed
+            sim32.step(sim32._fast_cfg.resort_every)
         dt, launches = timed_run(s, FAST_WORM_TIMED)
         check_fast_run(s, scene, FAST_WORM_TIMED, launches, per_step, label)
         runs[label] = dt * 1e3 / FAST_WORM_TIMED
@@ -2032,6 +2079,146 @@ def ab_phase(card, profile_steps):
     return dict(kernels={}, launches={}, extra=out)
 
 
+# ---------------------------------------------------------------------------
+# the compiled resort period: graphed against eager (phase 20)
+# ---------------------------------------------------------------------------
+
+def graph_stats(sim, label):
+    """Prints each period graph of ``sim``: its steps, capture plus
+    instantiate seconds, pool bytes and pair launches a replay."""
+    for run in sim._fast_runs.values():
+        for g in run.graphs.values():
+            print(f"  {label}: {g.r_steps}-step period graph: capture + "
+                  f"instantiate {g.capture_s:.3f} s, pool "
+                  f"{g.pool_bytes} B ({g.pool_bytes / 2**20:.1f} MiB), "
+                  f"launches a replay {g.launches[0]}", flush=True)
+
+
+def graph_turns(label, make_sim, warm, steps, per_step, card, sims=None):
+    """ms/step of ``steps`` steps on an eager and a graphed Simulator in
+    turns E G G E (``make_sim(cuda_graph)``, each first stepped by
+    ``warm(sim)``); every run's launches at exactly ``per_step`` a step
+    (other keys 0). Returns the two simulators."""
+    if sims is None:
+        sims = {"E": make_sim(False), "G": make_sim(None)}
+        for sim in sims.values():
+            warm(sim)
+    times = {"E": [], "G": []}
+    for k in "EGGE":
+        dt, launches = timed_run(sims[k], steps)
+        for key, n in launches.items():
+            want = per_step.get(key, 0) * steps
+            check(n == want, f"{label} {k} {key}: {n} launches in {steps} "
+                  f"steps, expected {want}")
+        times[k].append(dt * 1e3 / steps)
+    print(f"{label}: {steps} steps a run, E G G E: "
+          f"{times['E'][0]:.4f} {times['G'][0]:.4f} {times['G'][1]:.4f} "
+          f"{times['E'][1]:.4f} ms/step (eager / graphed) [{card}]",
+          flush=True)
+    graph_stats(sims["G"], label)
+    return sims
+
+
+def graph_phase(card, profile_steps):
+    # 20. the compiled resort period on the main path: 60 steps graphed and
+    # eager from one state, held bitwise; every path's ms/step in turns;
+    # the profiler's launch calls, busy and idle share of graphed steps
+    params = SimParams()
+    worm = generate_worm_scene(params)
+
+    def worm_sim(cuda_graph):
+        sim = Simulator(worm, params, engine="auto", device="cuda",
+                        cuda_graph=cuda_graph)
+        check(sim.engine == "fastw", f"auto resolved to {sim.engine}")
+        return sim
+
+    def warm_worm(sim):
+        # the first period one step at a time (phase 9), then one whole
+        # period: both graphs of the Simulator, GRAPH_STEPS in all
+        first_period(sim, "graph worm")
+        sim.step(GRAPH_STEPS - sim._fast_cfg.resort_every)
+
+    sims = {"E": worm_sim(False), "G": worm_sim(None)}
+    for sim in sims.values():
+        warm_worm(sim)
+    torch.cuda.synchronize()
+    e, g = sims["E"].state, sims["G"].state
+    check(int(e.step) == int(g.step) == GRAPH_STEPS,
+          f"steps {int(e.step)}, {int(g.step)}")
+    dpos = float((e.pos - g.pos).abs().max())
+    dvel = float((e.vel - g.vel).abs().max())
+    bitwise = all(torch.equal(getattr(e, f), getattr(g, f))
+                  for f in ("pos", "vel", "muscle_activation"))
+    moved = float((g.pos - torch.as_tensor(worm.pos, device=g.pos.device))
+                  .abs().max())
+    print(f"graph: the fastw worm after {GRAPH_STEPS} steps, graphed vs "
+          f"eager: bitwise {bitwise}, max|dpos| {dpos:.3e}, max|dvel| "
+          f"{dvel:.3e}; largest displacement {moved:.3e}", flush=True)
+    check(moved > 100 * ENGINE_TOL, f"the worm moved only {moved}")
+    if not bitwise:
+        # the eager loop against itself: the graph must match it bitwise
+        # unless the card's eager steps are not reproducible
+        again = worm_sim(False)
+        warm_worm(again)
+        d2 = float((again.state.pos - e.pos).abs().max())
+        print(f"graph: eager vs eager max|dpos| {d2:.3e}", flush=True)
+        check(d2 > 0.0, "the graphed period differs from the eager loop, "
+              "which repeats itself bitwise")
+        check(dpos <= ENGINE_TOL, f"graphed vs eager max|dpos| {dpos} > "
+              f"{ENGINE_TOL}")
+    graph_turns("graph fastw worm", worm_sim, warm_worm, GRAPH_TIMED,
+                PER_STEP, card, sims=sims)
+    gl, el = (profile(sims[k], GRAPH_PROFILE, card) for k in "GE")
+
+    def fmt(x, spec):
+        return "not measured" if x is None else format(x, spec)
+
+    print(f"graph: profiled fastw worm, {GRAPH_PROFILE} steps, graphed vs "
+          f"eager: cudaLaunchKernel {gl['cudaLaunchKernel'][0]:.2f} vs "
+          f"{el['cudaLaunchKernel'][0]:.2f} a step, cudaGraphLaunch "
+          f"{gl['cudaGraphLaunch'][0]:.3f} vs {el['cudaGraphLaunch'][0]:.3f}"
+          f" a step, host in launch calls "
+          f"{sum(gl[a][1] for a in LAUNCH_APIS):.1f} vs "
+          f"{sum(el[a][1] for a in LAUNCH_APIS):.1f} us a step, wall "
+          f"{gl['wall_ms']:.4f} vs {el['wall_ms']:.4f} ms/step, device busy "
+          f"{fmt(gl['busy_ms'], '.4f')} vs {fmt(el['busy_ms'], '.4f')} "
+          f"ms/step, idle {fmt(gl['idle'], '.3f')} vs "
+          f"{fmt(el['idle'], '.3f')} [{card}]", flush=True)
+    check(el["cudaLaunchKernel"][0] > 100 and gl["cudaGraphLaunch"][0] > 0,
+          "the profiler did not record the launch calls: eager "
+          f"{el['cudaLaunchKernel'][0]} cudaLaunchKernel, graphed "
+          f"{gl['cudaGraphLaunch'][0]} cudaGraphLaunch a step")
+    check(gl["cudaLaunchKernel"][0] <= GRAPH_MAX_LAUNCHES,
+          f"graphed worm: {gl['cudaLaunchKernel'][0]} cudaLaunchKernel a "
+          f"step > {GRAPH_MAX_LAUNCHES}")
+    del sims
+
+    # the other paths, eager and graphed in turns
+    box = generate_liquid_box_scene(params)
+    graph_turns(
+        "graph box", lambda cg: Simulator(box, params, device="cuda",
+                                          cuda_graph=cg),
+        lambda sim: sim.step(sim._fast_cfg.resort_every), GRAPH_TIMED,
+        PER_STEP_BOX, card)
+    fast_worm = {}
+    for sub in (None, 32):
+        per_step = {k + "_sub" if sub and k in pk.GATED else k: v
+                    for k, v in PER_STEP_FAST_WORM.items()}
+        fast_worm[sub] = graph_turns(
+            f"graph fast worm sub {sub}",
+            lambda cg, sub=sub: Simulator(
+                worm, params, engine="fast", device="cuda",
+                fast_config=dict(R4, sub=sub), cuda_graph=cg),
+            warm_worm, GRAPH_TIMED, per_step, card)
+    del fast_worm
+    dam = generate_liquid_box_scene(params, fill_fraction=0.8)
+    graph_turns(
+        "graph dam-break", lambda cg: Simulator(dam, params, device="cuda",
+                                                cuda_graph=cg),
+        lambda sim: sim.step(DAM_WARMUP), GRAPH_TIMED, PER_STEP_DAM, card)
+    return None
+
+
 # name -> phase(card, profile_steps), in running order; a phase that runs a
 # kernel's main path returns its ``kernels`` entries and launches a step
 PHASES = {"small": small_box_phases, "box": box_phases,
@@ -2039,7 +2226,8 @@ PHASES = {"small": small_box_phases, "box": box_phases,
           "worm": worm_phases, "small_fast": small_fast_phases,
           "tiny_worm": tiny_worm_phases, "dam": dam_break_phases,
           "fast_worm": fast_worm_phases, "exact": exact_phases,
-          "bench": bench_phase, "pack": pack_phase, "ab": ab_phase}
+          "bench": bench_phase, "pack": pack_phase, "ab": ab_phase,
+          "graph": graph_phase}
 
 
 if __name__ == "__main__":

@@ -12,7 +12,8 @@ Prints ONE JSON line on stdout, always:
 ``vs_baseline`` divides the value by the north-star target of
 ``BASELINE.json``, 5e7 particle-steps/s/chip: a target, not a speed any
 chip has reached. ``compile_s`` is the first chunk's seconds (the kernel
-build, when the library is not cached, and the first resort).
+build, when the library is not cached, the first resort and the capture of
+the period's CUDA graph).
 
 Configuration: the full worm from ``generate_worm_scene(SimParams())``
 (232,887 particles) on the values of ``results/r5/best_config.json``,
@@ -20,7 +21,8 @@ carried here as defaults (``BEST``; its TPU-only DMA ``depth`` has no
 counterpart): engine fastw, block 256, ccol 512, ccol_c 256, resort_every
 30. ``SPH_BENCH_ENGINE`` (fastw, fast or exact) and ``SPH_BENCH_SUB`` (the
 fast engine's subgroup size) override them. Chunks of 30 steps (one resort
-period each) on the host clock, each ending in a device synchronise: one
+period each, replayed from one CUDA graph on the card: ``run_engine``'s
+``cuda_graph``) on the host clock, each ending in a device synchronise: one
 untimed chunk, then at least 5 timed chunks within a 90 s budget, then the
 fast engines continue to step 500 for the integrity gate.
 
@@ -206,8 +208,12 @@ def gate_worm_integrity(scene, params, state):
 
 
 def run_engine(engine, scene, params, chunk, budget_s, device, sub=None,
-               block=256, ccol=512, ccol_c=256, resort_every=30):
-    """(timed steps, their wall seconds, first-chunk seconds, end state)."""
+               block=256, ccol=512, ccol_c=256, resort_every=30,
+               cuda_graph=None):
+    """(timed steps, their wall seconds, first-chunk seconds, end state).
+    ``cuda_graph``: the fast engines' periods replayed from CUDA graphs
+    (None: on the card, not on the CPU; False: the eager loop); the exact
+    engine has none, and True raises ValueError there."""
     state, springs, membranes = scene.device_state(device)
     layout = scene.layout()
     diag = {}
@@ -222,7 +228,8 @@ def run_engine(engine, scene, params, chunk, budget_s, device, sub=None,
         run = make_fastw_multi_step(
             params, layout, cfg, chunk, return_diag=True,
             wall_static=precompute_wall_static(
-                scene.pos, scene.normal, params, layout, cfg))
+                scene.pos, scene.normal, params, layout, cfg),
+            cuda_graph=cuda_graph)
 
         def advance(s):
             s, d = run(s, springs, membranes)
@@ -235,12 +242,16 @@ def run_engine(engine, scene, params, chunk, budget_s, device, sub=None,
         cfg = compute_fast_config(scene.pos, params, sub=sub, block=block,
                                   ccol=ccol, ccol_c=ccol_c,
                                   resort_every=resort_every)
-        run = make_fast_multi_step(params, layout, cfg, chunk)
+        run = make_fast_multi_step(params, layout, cfg, chunk,
+                                   cuda_graph=cuda_graph)
 
         def advance(s):
             return run(s, springs, membranes)
     elif engine == "exact":
         from .core.step import multi_step
+
+        if cuda_graph:
+            raise ValueError("the exact engine has no CUDA graph")
 
         def advance(s):
             return multi_step(s, springs, membranes, params, layout, chunk)

@@ -15,7 +15,9 @@ engine (``core/fastw.py``) reuses.
 
 Differences from the JAX module:
 
-* a Python loop over resort periods replaces the nested ``lax.scan``;
+* a resort period is captured once as a CUDA graph and replayed
+  (``core.graphed``) where the JAX module jits the nested ``lax.scan``; on
+  the CPU, or with ``cuda_graph=False``, a Python loop runs it.
   ``FastConfig`` has no ``interpret`` field (the tensors' device decides);
 * ``sort_ctx`` returns ``(ctx, diag)`` as the wall-compact engine's does,
   ``diag`` holding the tiles the Pallas passes' static caps would drop;
@@ -41,6 +43,7 @@ from ..config import SimParams
 from ..constants import BOUNDARY_PARTICLE, LIQUID_PARTICLE, MUSCLE_COUNT
 from ..models import muscle
 from ..ops import pair_kernels as pk
+from . import graphed
 from .elastic import elastic_accel
 from .state import FluidState, Membranes, Springs
 from .step import SceneLayout
@@ -507,7 +510,7 @@ def _make_step_parts(params: SimParams, layout: SceneLayout,
             pack[3 + n_slots:3 + 2 * n_slots, :n_el] = rest_c.T
             ctx["spr_pack"] = _pack_rows(pack)
             own_el = torch.zeros(n_pad, dtype=torch.bool, device=dev)
-            own_el[els] = True
+            own_el.index_fill_(0, els, True)
             own_el = own_el.reshape(nb, B).any(dim=1)
             ctx["spr_tables"] = (aln_c, lo_c, hi_c, s0_c,
                                  torch.where(own_el, cnt_c, zero), ob_t)
@@ -760,31 +763,28 @@ def _make_step_parts(params: SimParams, layout: SceneLayout,
 
 
 def make_fast_multi_step(params, layout, cfg: FastConfig, n_steps: int = 1,
-                         return_drift: bool = False):
+                         return_drift: bool = False,
+                         cuda_graph: bool | None = None):
     """run(state, springs, membranes) -> state after n_steps. One sort per
     resort period (``cfg.resort_every`` steps, the last period shorter).
     ``return_drift``: also return the window-staleness bound, the max over
     the call's resort periods of the summed per-step max displacement (a
     device tensor; 2x it bounds how far a pair approached while the
-    period's windows were stale)."""
+    period's windows were stale). ``cuda_graph``: each period length
+    captured once as a CUDA graph and replayed (``core.graphed``); None is
+    on for a state on the card and off on the CPU, True on the CPU raises
+    ValueError, False is the eager loop."""
     parts = _make_step_parts(params, layout, cfg)
-    r_every = max(1, cfg.resort_every)
-    full, rem = divmod(n_steps, r_every)
-    periods = [r_every] * full + ([rem] if rem else [])
+    run_periods = graphed.period_runner(parts, n_steps, cfg.resort_every,
+                                        cuda_graph)
 
     def run(state, springs, membranes):
-        drift = torch.zeros((), dtype=torch.float32, device=state.pos.device)
-        for r_steps in periods:
-            ctx, _ = parts.sort_ctx(state, springs, membranes)
-            carry = parts.carry_of(ctx, state)
-            for _ in range(r_steps):
-                carry = parts.inner_step(ctx, carry)
-            state = parts.unsort_state(ctx, carry, state)
-            drift = torch.maximum(drift, carry[-1])
+        state, diag = run_periods(state, springs, membranes)
         if return_drift:
-            return state, drift
+            return state, diag["window_drift"]
         return state
 
+    run.graphs = run_periods.graphs
     return run
 
 

@@ -12,7 +12,9 @@ plain versions on CPU).
 
 Differences from the JAX module:
 
-* a Python loop over resort periods replaces the nested ``lax.scan``;
+* a resort period is captured once as a CUDA graph and replayed
+  (``core.graphed``) where the JAX module jits the nested ``lax.scan``; on
+  the CPU, or with ``cuda_graph=False``, a Python loop runs it;
 * the wall sort and wall-wall density sums always come from
   :func:`precompute_wall_static` (the in-graph ``raw_sw`` wall path of the
   JAX module is not ported);
@@ -41,6 +43,7 @@ from ..ops import pair_kernels as pk
 from .state import FluidState, Membranes, Springs
 from .step import SceneLayout
 from . import fast as F
+from . import graphed
 from .fast import StepParts, _table_overflow, record_step_inputs  # noqa: F401
 
 ALIGN = pk.ALIGN
@@ -279,7 +282,7 @@ def _shell_of(cid_m, cid_w_s, cfg: FastWConfig):
     nx, ny, nz = cfg.dims
     occ = torch.zeros(nx * ny * nz, dtype=torch.float32,
                       device=cid_m.device)
-    occ[cid_m.long()] = 1.0
+    occ.index_fill_(0, cid_m.long(), 1.0)
     d = cfg.dilate
     dil = TF.max_pool3d(occ.reshape(1, 1, nz, nx, ny), kernel_size=2 * d + 1,
                         stride=1, padding=d).reshape(-1)
@@ -516,7 +519,7 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
             pack[3 + n_slots:3 + 2 * n_slots, :n_el] = rest_c.T
             ctx["spr_pack"] = pack
             own_el = torch.zeros(cfg.n_pad, dtype=torch.bool, device=dev)
-            own_el[els] = True
+            own_el.index_fill_(0, els, True)
             own_el = own_el.reshape(nb_m, B).any(dim=1)
             ctx["spr_tables"] = (
                 aln_c, lo_c, hi_c, s0_c,
@@ -802,37 +805,27 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
 
 def make_fastw_multi_step(params, layout, cfg: FastWConfig,
                           n_steps: int = 1, return_diag: bool = False,
-                          wall_static=None):
+                          wall_static=None, cuda_graph: bool | None = None):
     """run(state, springs, membranes) -> state after n_steps. One sort per
     resort period (``cfg.resort_every`` steps, the last period shorter).
     ``return_diag``: also return a dict with the window-staleness drift
     bound and the shell/tile overflow counts (max over the call's resort
     periods), all device tensors — overflow means pairs were DROPPED and
-    must be surfaced loudly by the caller."""
+    must be surfaced loudly by the caller. ``cuda_graph``: each period
+    length captured once as a CUDA graph and replayed (``core.graphed``);
+    None is on for a state on the card and off on the CPU, True on the CPU
+    raises ValueError, False is the eager loop."""
     parts = _make_step_parts_w(params, layout, cfg, wall_static=wall_static)
-    r_every = max(1, cfg.resort_every)
-    full, rem = divmod(n_steps, r_every)
-    periods = [r_every] * full + ([rem] if rem else [])
+    run_periods = graphed.period_runner(parts, n_steps, cfg.resort_every,
+                                        cuda_graph)
 
     def run(state, springs, membranes):
-        dev = state.pos.device
-        drift = torch.zeros((), dtype=torch.float32, device=dev)
-        ovf = dict(
-            shell_overflow=torch.zeros((), dtype=torch.int32, device=dev),
-            tile_overflow=torch.zeros((), dtype=torch.int32, device=dev),
-        )
-        for r_steps in periods:
-            ctx, diag = parts.sort_ctx(state, springs, membranes)
-            carry = parts.carry_of(ctx, state)
-            for _ in range(r_steps):
-                carry = parts.inner_step(ctx, carry)
-            state = parts.unsort_state(ctx, carry, state)
-            drift = torch.maximum(drift, carry[-1])
-            ovf = {k: torch.maximum(ovf[k], diag[k]) for k in ovf}
+        state, diag = run_periods(state, springs, membranes)
         if return_diag:
-            return state, dict(window_drift=drift, **ovf)
+            return state, diag
         return state
 
+    run.graphs = run_periods.graphs
     return run
 
 

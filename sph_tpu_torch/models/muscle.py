@@ -26,13 +26,24 @@ _SPAN = 1.5 * 2 * math.pi
 _WAVE_VELOCITY = 1e-4
 _INCREMENT = 1.0
 _ROW = np.linspace(0.0, _SPAN, _N_ROWS, dtype=np.float32)
+# device -> _ROW on it. Copied once per device: the copy from host memory
+# cannot run inside a CUDA graph's capture, where a step may compute the
+# signal (the graphed period's warm-up makes the first copy)
+_ROW_ON: dict[torch.device, torch.Tensor] = {}
+
+
+def _row(device: torch.device) -> torch.Tensor:
+    row = _ROW_ON.get(device)
+    if row is None:
+        row = _ROW_ON[device] = torch.as_tensor(_ROW, device=device)
+    return row
 
 
 def waves_signal(t: torch.Tensor) -> torch.Tensor:
     """Activation vector [..., MUSCLE_COUNT] for wave time ``t`` (an f32
     tensor, scalar or batched), on ``t``'s device."""
     t = t.to(torch.float32)
-    row = torch.as_tensor(_ROW, device=t.device)
+    row = _row(t.device)
     phase = (float(np.float32(_WAVE_VELOCITY)) * t
              * float(np.float32(_INCREMENT)))[..., None]
     w1 = (torch.sin(row - phase) + 1.0) * 0.5

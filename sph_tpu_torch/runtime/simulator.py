@@ -3,9 +3,10 @@
 
 Owns the device state, steps the physics (the fast engines in chunks of
 one resort period), and surfaces the engine's overflow diagnostics loudly.
-The exact, fast and wall-compact (fastw) engines are ported; trajectory
-dumps, checkpoints and the adaptive resort ladder are ROADMAP Queue 1 item
-9.
+The exact, fast and wall-compact (fastw) engines are ported; on the card
+the fast engines replay each resort period from a CUDA graph
+(``core.graphed``). Trajectory dumps, checkpoints, the adaptive resort
+ladder and the multi-GPU engine are not ported yet (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -22,9 +23,9 @@ from .timing import StepTimer
 
 logger = logging.getLogger("sph_tpu_torch")
 
-# engines of sph_tpu not ported yet -> the ROADMAP item that ports them
+# engines of sph_tpu not ported yet -> the feature that ports them
 _NOT_PORTED = {
-    "halo": "ROADMAP Queue 1 item 11 (multi-GPU)",
+    "halo": "multi-GPU, ROADMAP Queue 1",
 }
 
 
@@ -52,23 +53,30 @@ class Simulator:
         fast_config: dict | None = None,
         dump_dir: str | None = None,
         adaptive_resort: bool = False,
+        cuda_graph: bool | None = None,
     ):
         """engine: "auto" (see :func:`resolve_auto_engine`), "exact" (the
         neighbour-list engine, the reference's nearest 32 within h;
         core/step.py), "fast" (the blocked pair engine, walls in the carry;
         core/fast.py) or "fastw" (the wall-compact engine; core/fastw.py);
-        "halo" raises NotImplementedError naming its ROADMAP item.
+        "halo" raises NotImplementedError naming its ROADMAP queue.
         device: a torch device; "cuda" runs the pair passes as Hopper
         kernels, "cpu" as their plain PyTorch versions. fast_config:
         keyword overrides for ``compute_fast_config`` (fast:
         block/ccol/ccol_c/resort_every/sub) or ``compute_fastw_config``
-        (fastw: block/ccol/ccol_c/resort_every/dilate/shell_margin)."""
+        (fastw: block/ccol/ccol_c/resort_every/dilate/shell_margin).
+        cuda_graph: the fast engines replay each resort period from a CUDA
+        graph captured at its first step (``core.graphed``); None is on
+        for a device on the card and off on the CPU, True on the CPU
+        raises ValueError, False steps the eager loop. The exact engine
+        has no graph: True raises there."""
         if dump_dir is not None:
             raise NotImplementedError(
-                "trajectory dumps: ROADMAP Queue 1 item 9")
+                "trajectory dumps: ROADMAP Queue 1 (trajectory I/O)")
         if adaptive_resort:
             raise NotImplementedError(
-                "adaptive resort: ROADMAP Queue 1 item 9")
+                "adaptive resort: ROADMAP Queue 1 (the adaptive resort "
+                "ladder)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is "
@@ -83,6 +91,13 @@ class Simulator:
                 f"engine {engine!r} is not ported yet: {_NOT_PORTED[engine]}")
         if engine not in ("exact", "fast", "fastw"):
             raise ValueError(f"unknown engine {engine!r}")
+        if engine == "exact" and cuda_graph:
+            raise ValueError("the exact engine has no CUDA graph: "
+                             "cuda_graph must be None or False")
+        from ..core.graphed import use_graph
+
+        use_graph(cuda_graph, self.device)
+        self._cuda_graph = cuda_graph
         self.engine = engine
 
         fck = dict(fast_config or {})
@@ -143,24 +158,28 @@ class Simulator:
 
     def _fast_run_for(self, n: int):
         """run(state, springs, membranes) -> (state, diag) over n steps;
-        diag holds device tensors (fast: the window drift only)."""
+        diag holds device tensors (fast: the window drift only);
+        ``run.graphs`` the period graphs it has captured."""
         if n not in self._fast_runs:
             if self.engine == "fast":
                 from ..core.fast import make_fast_multi_step
 
                 fast_run = make_fast_multi_step(
                     self.params, self.layout, self._fast_cfg, n,
-                    return_drift=True)
+                    return_drift=True, cuda_graph=self._cuda_graph)
 
                 def run(state, springs, membranes, _f=fast_run):
                     out, drift = _f(state, springs, membranes)
                     return out, dict(window_drift=drift)
+
+                run.graphs = fast_run.graphs
             else:
                 from ..core.fastw import make_fastw_multi_step
 
                 run = make_fastw_multi_step(
                     self.params, self.layout, self._fast_cfg, n,
                     return_diag=True, wall_static=self._wall_static,
+                    cuda_graph=self._cuda_graph,
                 )
             self._fast_runs[n] = run
         return self._fast_runs[n]
@@ -303,7 +322,9 @@ class Simulator:
             muscle_activation=torch.as_tensor(act, device=self.device))
 
     def save(self, path: str, wait: bool = True) -> None:
-        raise NotImplementedError("checkpoints: ROADMAP Queue 1 item 9")
+        raise NotImplementedError("checkpoints: ROADMAP Queue 1 "
+                                  "(checkpoints)")
 
     def restore(self, path: str) -> None:
-        raise NotImplementedError("checkpoints: ROADMAP Queue 1 item 9")
+        raise NotImplementedError("checkpoints: ROADMAP Queue 1 "
+                                  "(checkpoints)")

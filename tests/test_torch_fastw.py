@@ -464,7 +464,8 @@ def test_unported_paths_raise():
     sim.step(2)
     assert sim.step_count == 2 and np.isfinite(sim.get_position()).all()
     assert np.abs(sim.get_position() - blob.pos).max() > 1e-3
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="multi-GPU, ROADMAP Queue 1"):
         Simulator(box, params, engine="halo", device="cpu")
     for kw in (dict(dump_dir="frames"), dict(adaptive_resort=True)):
         with pytest.raises(NotImplementedError):
