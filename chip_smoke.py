@@ -7,7 +7,8 @@ Phases (any failure raises and exits nonzero, printing no result). Every
 fast-engine run on the card replays each resort period from a CUDA graph
 (``core/graphed.py``, the engines' default there): the card runs that
 phases 4, 8 and 12 hold to the CPU are graphed, and the launch counts
-checked below are the counts a replay adds (its capture's):
+checked below are the counts a replay adds (its capture's; phase 20 holds
+them to the kernels the card ran, as the profiler records them):
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the Hopper pair-pass kernels from ``sph_tpu_torch/ops/
@@ -167,7 +168,10 @@ checked below are the counts a replay adds (its capture's):
    and 60 profiled steps of the graphed and the eager worm: the
    ``cudaLaunchKernel`` and ``cudaGraphLaunch`` calls a step and their
    host time, the device busy time and idle share (at most
-   ``GRAPH_MAX_LAUNCHES`` kernel launch calls a graphed step).
+   ``GRAPH_MAX_LAUNCHES`` kernel launch calls a graphed step), and each
+   pair kernel's records on the device held to its launches a step (so
+   the card, not the replay's bookkeeping, shows each graph runs every
+   pair kernel as often as the eager loop).
 
 Each phase prints its seconds. ``--only`` runs the named phases alone
 (small: 3-4, box: 5-6, rworm: 7, rworm_engine: 8, worm: 9-10, small_fast:
@@ -204,6 +208,7 @@ from sph_tpu_torch.constants import (BOUNDARY_PARTICLE, ELASTIC_PARTICLE,
                                      LIQUID_PARTICLE)
 from sph_tpu_torch.core import fast as F
 from sph_tpu_torch.core import fastw as W
+from sph_tpu_torch.core import graphed
 from sph_tpu_torch.core import step as S
 from sph_tpu_torch.core.elastic import elastic_accel
 from sph_tpu_torch.models import muscle
@@ -321,6 +326,11 @@ GRAPH_PROFILE = 60    # profiled steps, graphed and eager
 # over its 30 steps (the eager worm step makes ~444)
 GRAPH_MAX_LAUNCHES = 5
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaGraphLaunch")
+# the functor of a pair kernel's device name -> its kind in pk.LAUNCHES
+FUNCTOR_KIND = {"Density": "density", "RhoStar": "rho_star",
+                "ViscSurf": "viscsurf", "PAccel": "paccel",
+                "Boundary": "boundary", "Spring": "spring",
+                "Membrane": "membrane"}
 
 
 def check(ok, msg):
@@ -845,12 +855,33 @@ def worm_integrity(sim, scene, params, parts=None):
           f"muscle activation off the wave model by {d}")
 
 
+def pair_records(kernels):
+    """``pk.LAUNCHES`` key -> the device records of the pair kernels among
+    ``kernels`` (device name -> records): ``spring_list`` is the spring
+    kind; a ``pair_ring`` or ``pair_pass`` kernel's kind is its functor's,
+    with ``_sub`` where its last template argument (Gated) is true."""
+    out = {}
+    for name, n in kernels.items():
+        if "spring_list" in name:
+            key = "spring"
+        else:
+            m = re.search(r"(?:pair_ring|pair_pass)<(?:\(anonymous "
+                          r"namespace\)::)?(\w+),.*?(true|false)>", name)
+            if m is None:
+                continue
+            key = FUNCTOR_KIND[m.group(1)] + ("_sub" if m.group(2) == "true"
+                                              else "")
+        out[key] = out.get(key, 0) + n
+    return out
+
+
 def profile(sim, steps, card):
     """``steps`` main-path steps under torch.profiler: device busy share,
     the pair kernels' share of device time, top device and host ops, the
     kernel and graph launch calls a step. Returns the wall ms a step, (calls,
-    host us) a step of each launch call (``LAUNCH_APIS``), and the busy ms
-    a step and idle share, None where the profiler recorded no kernel."""
+    host us) a step of each launch call (``LAUNCH_APIS``), the pair
+    kernels' device records by launch key (``pair_records``), and the busy
+    ms a step and idle share, None where the profiler recorded no kernel."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     torch.cuda.synchronize()
@@ -869,7 +900,8 @@ def profile(sim, steps, card):
                   if "pair_pass" in e.key or "pair_ring" in e.key)
     print(f"profile: {steps} steps, wall {wall_us / steps / 1e3:.4f} "
           f"ms/step (profiler on) [{card}]", flush=True)
-    out = dict(wall_ms=wall_us / steps / 1e3, busy_ms=None, idle=None)
+    out = dict(wall_ms=wall_us / steps / 1e3, busy_ms=None, idle=None,
+               pairs=pair_records({e.key: e.count for e in kernels}))
     for api in LAUNCH_APIS:
         calls = [e for e in host if e.key.startswith(api)]
         out[api] = (sum(e.count for e in calls) / steps,
@@ -2083,15 +2115,16 @@ def ab_phase(card, profile_steps):
 # the compiled resort period: graphed against eager (phase 20)
 # ---------------------------------------------------------------------------
 
-def graph_stats(sim, label):
-    """Prints each period graph of ``sim``: its steps, capture plus
-    instantiate seconds, pool bytes and pair launches a replay."""
-    for run in sim._fast_runs.values():
-        for g in run.graphs.values():
-            print(f"  {label}: {g.r_steps}-step period graph: capture + "
-                  f"instantiate {g.capture_s:.3f} s, pool "
-                  f"{g.pool_bytes} B ({g.pool_bytes / 2**20:.1f} MiB), "
-                  f"launches a replay {g.launches[0]}", flush=True)
+def graph_stats(label):
+    """Prints, and takes out of ``graphed.CAPTURES``, each period graph
+    captured since the last call: its steps, capture plus instantiate
+    seconds, pool bytes and pair launches a replay."""
+    for c in graphed.CAPTURES:
+        print(f"  {label}: {c['r_steps']}-step period graph: capture + "
+              f"instantiate {c['capture_s']:.3f} s, pool "
+              f"{c['pool_bytes']} B ({c['pool_bytes'] / 2**20:.1f} MiB), "
+              f"launches a replay {c['launches']}", flush=True)
+    graphed.CAPTURES.clear()
 
 
 def graph_turns(label, make_sim, warm, steps, per_step, card, sims=None):
@@ -2100,7 +2133,7 @@ def graph_turns(label, make_sim, warm, steps, per_step, card, sims=None):
     ``warm(sim)``); every run's launches at exactly ``per_step`` a step
     (other keys 0). Returns the two simulators."""
     if sims is None:
-        sims = {"E": make_sim(False), "G": make_sim(None)}
+        sims = {"E": make_sim(False), "G": make_sim(True)}
         for sim in sims.values():
             warm(sim)
     times = {"E": [], "G": []}
@@ -2115,7 +2148,7 @@ def graph_turns(label, make_sim, warm, steps, per_step, card, sims=None):
           f"{times['E'][0]:.4f} {times['G'][0]:.4f} {times['G'][1]:.4f} "
           f"{times['E'][1]:.4f} ms/step (eager / graphed) [{card}]",
           flush=True)
-    graph_stats(sims["G"], label)
+    graph_stats(label)
     return sims
 
 
@@ -2138,7 +2171,8 @@ def graph_phase(card, profile_steps):
         first_period(sim, "graph worm")
         sim.step(GRAPH_STEPS - sim._fast_cfg.resort_every)
 
-    sims = {"E": worm_sim(False), "G": worm_sim(None)}
+    graphed.CAPTURES.clear()
+    sims = {"E": worm_sim(False), "G": worm_sim(True)}
     for sim in sims.values():
         warm_worm(sim)
     torch.cuda.synchronize()
@@ -2191,6 +2225,21 @@ def graph_phase(card, profile_steps):
     check(gl["cudaLaunchKernel"][0] <= GRAPH_MAX_LAUNCHES,
           f"graphed worm: {gl['cudaLaunchKernel'][0]} cudaLaunchKernel a "
           f"step > {GRAPH_MAX_LAUNCHES}")
+    # the device's own count of each pair kernel against the launches a
+    # step: a graph that dropped or repeated a pair kernel of its period
+    # (2 periods here) would miss by 2 records or more; a session may drop
+    # its first kernel record, so 1 record short in all is allowed
+    want = {k: v * GRAPH_PROFILE for k, v in PER_STEP.items()}
+    for k, prof in (("graphed", gl), ("eager", el)):
+        got = prof["pairs"]
+        short = {key: want.get(key, 0) - n for key, n in
+                 (want | got).items() if got.get(key, 0) != want.get(key, 0)}
+        print(f"graph: {k} worm, pair kernel records on the device in "
+              f"{GRAPH_PROFILE} steps: {got} (expected {want})", flush=True)
+        check(all(v >= 0 for v in short.values())
+              and sum(short.values()) <= 1,
+              f"{k} worm: the device ran the pair kernels {got} times in "
+              f"{GRAPH_PROFILE} steps, expected {want}")
     del sims
 
     # the other paths, eager and graphed in turns

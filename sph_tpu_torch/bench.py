@@ -21,10 +21,10 @@ carried here as defaults (``BEST``; its TPU-only DMA ``depth`` has no
 counterpart): engine fastw, block 256, ccol 512, ccol_c 256, resort_every
 30. ``SPH_BENCH_ENGINE`` (fastw, fast or exact) and ``SPH_BENCH_SUB`` (the
 fast engine's subgroup size) override them. Chunks of 30 steps (one resort
-period each, replayed from one CUDA graph on the card: ``run_engine``'s
-``cuda_graph``) on the host clock, each ending in a device synchronise: one
-untimed chunk, then at least 5 timed chunks within a 90 s budget, then the
-fast engines continue to step 500 for the integrity gate.
+period each, replayed from one CUDA graph on the card) on the host clock,
+each ending in a device synchronise: one untimed chunk, then at least 5
+timed chunks within a 90 s budget, then the fast engines continue to step
+500 for the integrity gate.
 
 Physics gates (a failure zeroes the value):
   1. ``gate_box_equivalence``: the measured engine against the port's exact
@@ -208,12 +208,8 @@ def gate_worm_integrity(scene, params, state):
 
 
 def run_engine(engine, scene, params, chunk, budget_s, device, sub=None,
-               block=256, ccol=512, ccol_c=256, resort_every=30,
-               cuda_graph=None):
-    """(timed steps, their wall seconds, first-chunk seconds, end state).
-    ``cuda_graph``: the fast engines' periods replayed from CUDA graphs
-    (None: on the card, not on the CPU; False: the eager loop); the exact
-    engine has none, and True raises ValueError there."""
+               block=256, ccol=512, ccol_c=256, resort_every=30):
+    """(timed steps, their wall seconds, first-chunk seconds, end state)."""
     state, springs, membranes = scene.device_state(device)
     layout = scene.layout()
     diag = {}
@@ -228,8 +224,7 @@ def run_engine(engine, scene, params, chunk, budget_s, device, sub=None,
         run = make_fastw_multi_step(
             params, layout, cfg, chunk, return_diag=True,
             wall_static=precompute_wall_static(
-                scene.pos, scene.normal, params, layout, cfg),
-            cuda_graph=cuda_graph)
+                scene.pos, scene.normal, params, layout, cfg))
 
         def advance(s):
             s, d = run(s, springs, membranes)
@@ -242,16 +237,12 @@ def run_engine(engine, scene, params, chunk, budget_s, device, sub=None,
         cfg = compute_fast_config(scene.pos, params, sub=sub, block=block,
                                   ccol=ccol, ccol_c=ccol_c,
                                   resort_every=resort_every)
-        run = make_fast_multi_step(params, layout, cfg, chunk,
-                                   cuda_graph=cuda_graph)
+        run = make_fast_multi_step(params, layout, cfg, chunk)
 
         def advance(s):
             return run(s, springs, membranes)
     elif engine == "exact":
         from .core.step import multi_step
-
-        if cuda_graph:
-            raise ValueError("the exact engine has no CUDA graph")
 
         def advance(s):
             return multi_step(s, springs, membranes, params, layout, chunk)

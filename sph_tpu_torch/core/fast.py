@@ -764,16 +764,16 @@ def _make_step_parts(params: SimParams, layout: SceneLayout,
 
 def make_fast_multi_step(params, layout, cfg: FastConfig, n_steps: int = 1,
                          return_drift: bool = False,
-                         cuda_graph: bool | None = None):
+                         cuda_graph: bool = True):
     """run(state, springs, membranes) -> state after n_steps. One sort per
     resort period (``cfg.resort_every`` steps, the last period shorter).
     ``return_drift``: also return the window-staleness bound, the max over
     the call's resort periods of the summed per-step max displacement (a
     device tensor; 2x it bounds how far a pair approached while the
-    period's windows were stale). ``cuda_graph``: each period length
-    captured once as a CUDA graph and replayed (``core.graphed``); None is
-    on for a state on the card and off on the CPU, True on the CPU raises
-    ValueError, False is the eager loop."""
+    period's windows were stale). ``cuda_graph``: for a state on the card,
+    each period length captured once as a CUDA graph and replayed
+    (``core.graphed``); False, or a state on the CPU, is the eager
+    loop."""
     parts = _make_step_parts(params, layout, cfg)
     run_periods = graphed.period_runner(parts, n_steps, cfg.resort_every,
                                         cuda_graph)
@@ -784,7 +784,6 @@ def make_fast_multi_step(params, layout, cfg: FastConfig, n_steps: int = 1,
             return state, diag["window_drift"]
         return state
 
-    run.graphs = run_periods.graphs
     return run
 
 

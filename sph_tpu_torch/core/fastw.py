@@ -805,16 +805,16 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
 
 def make_fastw_multi_step(params, layout, cfg: FastWConfig,
                           n_steps: int = 1, return_diag: bool = False,
-                          wall_static=None, cuda_graph: bool | None = None):
+                          wall_static=None, cuda_graph: bool = True):
     """run(state, springs, membranes) -> state after n_steps. One sort per
     resort period (``cfg.resort_every`` steps, the last period shorter).
     ``return_diag``: also return a dict with the window-staleness drift
     bound and the shell/tile overflow counts (max over the call's resort
     periods), all device tensors — overflow means pairs were DROPPED and
-    must be surfaced loudly by the caller. ``cuda_graph``: each period
-    length captured once as a CUDA graph and replayed (``core.graphed``);
-    None is on for a state on the card and off on the CPU, True on the CPU
-    raises ValueError, False is the eager loop."""
+    must be surfaced loudly by the caller. ``cuda_graph``: for a state on
+    the card, each period length captured once as a CUDA graph and
+    replayed (``core.graphed``); False, or a state on the CPU, is the
+    eager loop."""
     parts = _make_step_parts_w(params, layout, cfg, wall_static=wall_static)
     run_periods = graphed.period_runner(parts, n_steps, cfg.resort_every,
                                         cuda_graph)
@@ -825,7 +825,6 @@ def make_fastw_multi_step(params, layout, cfg: FastWConfig,
             return state, diag
         return state
 
-    run.graphs = run_periods.graphs
     return run
 
 

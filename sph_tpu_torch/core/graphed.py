@@ -24,21 +24,23 @@ period.
 * every call returns clones of the graph's outputs: a caller that keeps an
   earlier state never sees it overwritten by a later replay.
 
-A capture that fails raises, naming the op that broke it; nothing falls
-back to the eager loop.
+A capture that fails raises, with the failing op's traceback chained;
+nothing falls back to the eager loop.
 
 Launch counts: ``pair_kernels.LAUNCHES`` and ``pack.LAUNCHES`` count the
 wrappers' Python calls, and a replay makes none. The warm-up and the
 capture are set-up: the counts they add are taken back, and the capture's
 are added again at every replay, so each call counts one period's launches
 as the eager loop does.
+
+Every capture appends its record to :data:`CAPTURES` (steps, capture plus
+instantiate seconds, pool bytes, launches a replay), which measurement
+scripts read.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-import traceback
-from pathlib import Path
 
 import torch
 
@@ -50,20 +52,10 @@ from .state import FluidState
 _COUNTERS = (pk.LAUNCHES, pack_ops.LAUNCHES)
 # the fields of a state that change from period to period
 _CHANGING = ("pos", "vel", "muscle_activation", "step")
-_PACKAGE = Path(__file__).resolve().parents[1]
-
-
-def use_graph(cuda_graph, device) -> bool:
-    """Whether a run on ``device`` replays graphs: ``cuda_graph`` None means
-    on the card and not on the CPU; True on a device other than CUDA
-    raises ValueError; False is the eager loop."""
-    on_card = torch.device(device).type == "cuda"
-    if cuda_graph is None:
-        return on_card
-    if cuda_graph and not on_card:
-        raise ValueError(f"cuda_graph=True needs a state on a CUDA device, "
-                         f"got {device}")
-    return bool(cuda_graph)
+# one record a capture: r_steps, capture_s (capture plus instantiate
+# seconds), pool_bytes (the device memory it reserved: the graph's private
+# pool) and launches (the counts a replay adds)
+CAPTURES: list[dict] = []
 
 
 def run_period(parts, r_steps: int, state: FluidState, springs, membranes):
@@ -77,12 +69,13 @@ def run_period(parts, r_steps: int, state: FluidState, springs, membranes):
             dict(diag, window_drift=carry[-1]))
 
 
-def period_runner(parts, n_steps: int, resort_every: int, cuda_graph=None):
+def period_runner(parts, n_steps: int, resort_every: int,
+                  cuda_graph: bool = True):
     """run(state, springs, membranes) -> (state, diag) after ``n_steps``:
     whole periods of ``resort_every`` steps, the last one shorter, each
-    replayed from its length's graph (:func:`use_graph` decides from the
-    state's device), else run eagerly. ``diag`` holds each key's max over
-    the periods."""
+    replayed from its length's graph when ``cuda_graph`` is set and the
+    state is on a CUDA device, else run eagerly. ``diag`` holds each key's
+    max over the periods."""
     if n_steps < 1:
         raise ValueError(f"n_steps must be at least 1, got {n_steps}")
     r_every = max(1, resort_every)
@@ -91,7 +84,7 @@ def period_runner(parts, n_steps: int, resort_every: int, cuda_graph=None):
     graphs = {}
 
     def run(state, springs, membranes):
-        graphed = use_graph(cuda_graph, state.pos.device)
+        graphed = cuda_graph and state.pos.device.type == "cuda"
         diag = {}
         for r_steps in periods:
             if graphed:
@@ -106,7 +99,6 @@ def period_runner(parts, n_steps: int, resort_every: int, cuda_graph=None):
                     for k, v in d.items()}
         return state, diag
 
-    run.graphs = graphs
     return run
 
 
@@ -128,15 +120,12 @@ def _refs(state, springs, membranes):
 class PeriodGraph:
     """One resort period of ``r_steps`` steps, captured as a CUDA graph at
     its first call and replayed at every later one (see the module
-    docstring). ``capture_s`` is the capture plus instantiate seconds,
-    ``pool_bytes`` the device memory the capture reserved (the graph's
-    private pool), ``launches`` the counts its capture added."""
+    docstring). ``launches`` holds the counts its capture added, one dict
+    a counter."""
 
     def __init__(self, parts, r_steps: int):
         self.parts, self.r_steps = parts, r_steps
-        self.graph = None
-        self.capture_s = self.pool_bytes = None
-        self.launches = None
+        self.graph = self.launches = None
         self._in = self._args = self._refs = self._out = None
 
     def eager(self, state, springs, membranes):
@@ -206,14 +195,16 @@ class PeriodGraph:
                 out = self._body()
         except RuntimeError as e:
             _set_counts(before)
-            raise RuntimeError(
-                f"capture of the {self.r_steps}-step period failed at "
-                f"{_culprit(e)}: {e}") from e
+            raise RuntimeError(f"capture of the {self.r_steps}-step period "
+                               f"failed: {e}") from e
         torch.cuda.synchronize()
-        self.capture_s = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        capture_s = time.perf_counter() - t0
         self.launches = [{k: c[k] - b[k] for k in c if c[k] != b[k]}
                          for c, b in zip(_COUNTERS, before)]
+        CAPTURES.append(dict(
+            r_steps=self.r_steps, capture_s=capture_s,
+            pool_bytes=torch.cuda.memory_reserved() - reserved,
+            launches=self.launches[0]))
         _set_counts(before)
         self.graph, self._out = graph, out
 
@@ -222,18 +213,3 @@ def _set_counts(values):
     for counter, saved in zip(_COUNTERS, values):
         counter.update(saved)
 
-
-def _culprit(err: BaseException) -> str:
-    """file:line and source of the innermost frame of this package in the
-    first error of ``err``'s chain (a capture that fails at an op can fail
-    again when the capture ends)."""
-    while err.__context__ is not None:
-        err = err.__context__
-    frames = [f for f in traceback.extract_tb(err.__traceback__)
-              if _PACKAGE in Path(f.filename).resolve().parents
-              and Path(f.filename).name != "graphed.py"]
-    if not frames:
-        return "an op outside the package"
-    f = frames[-1]
-    return f"{Path(f.filename).relative_to(_PACKAGE.parent)}:{f.lineno} " \
-           f"({f.line})"

@@ -53,7 +53,7 @@ class Simulator:
         fast_config: dict | None = None,
         dump_dir: str | None = None,
         adaptive_resort: bool = False,
-        cuda_graph: bool | None = None,
+        cuda_graph: bool = True,
     ):
         """engine: "auto" (see :func:`resolve_auto_engine`), "exact" (the
         neighbour-list engine, the reference's nearest 32 within h;
@@ -65,11 +65,10 @@ class Simulator:
         keyword overrides for ``compute_fast_config`` (fast:
         block/ccol/ccol_c/resort_every/sub) or ``compute_fastw_config``
         (fastw: block/ccol/ccol_c/resort_every/dilate/shell_margin).
-        cuda_graph: the fast engines replay each resort period from a CUDA
-        graph captured at its first step (``core.graphed``); None is on
-        for a device on the card and off on the CPU, True on the CPU
-        raises ValueError, False steps the eager loop. The exact engine
-        has no graph: True raises there."""
+        cuda_graph: on the card, the fast engines replay each resort
+        period from a CUDA graph captured at its first step
+        (``core.graphed``); False, or the CPU, steps the eager loop. The
+        exact engine has no graph."""
         if dump_dir is not None:
             raise NotImplementedError(
                 "trajectory dumps: ROADMAP Queue 1 (trajectory I/O)")
@@ -91,12 +90,6 @@ class Simulator:
                 f"engine {engine!r} is not ported yet: {_NOT_PORTED[engine]}")
         if engine not in ("exact", "fast", "fastw"):
             raise ValueError(f"unknown engine {engine!r}")
-        if engine == "exact" and cuda_graph:
-            raise ValueError("the exact engine has no CUDA graph: "
-                             "cuda_graph must be None or False")
-        from ..core.graphed import use_graph
-
-        use_graph(cuda_graph, self.device)
         self._cuda_graph = cuda_graph
         self.engine = engine
 
@@ -158,8 +151,7 @@ class Simulator:
 
     def _fast_run_for(self, n: int):
         """run(state, springs, membranes) -> (state, diag) over n steps;
-        diag holds device tensors (fast: the window drift only);
-        ``run.graphs`` the period graphs it has captured."""
+        diag holds device tensors (fast: the window drift only)."""
         if n not in self._fast_runs:
             if self.engine == "fast":
                 from ..core.fast import make_fast_multi_step
@@ -171,8 +163,6 @@ class Simulator:
                 def run(state, springs, membranes, _f=fast_run):
                     out, drift = _f(state, springs, membranes)
                     return out, dict(window_drift=drift)
-
-                run.graphs = fast_run.graphs
             else:
                 from ..core.fastw import make_fastw_multi_step
 

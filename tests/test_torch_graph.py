@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from sph_tpu_torch import SimParams, bench
+from sph_tpu_torch import SimParams
 from sph_tpu_torch.constants import BOUNDARY_PARTICLE, MAX_NEIGHBORS
 from sph_tpu_torch.core import fast as F
 from sph_tpu_torch.core import fastw as W
@@ -292,6 +292,7 @@ def test_replays_count_the_launches_of_their_capture(fake_cuda,
     monkeypatch.setattr(pack_ops, "LAUNCHES", {"pack": 0})
     monkeypatch.setattr(graphed, "_COUNTERS",
                         (pk.LAUNCHES, pack_ops.LAUNCHES))
+    monkeypatch.setattr(graphed, "CAPTURES", [])
     state, springs, membranes = scene.device_state("cpu")
     graphed.run_period(parts, RESORT, state, springs, membranes)
     per_period = {k: v for k, v in pk.LAUNCHES.items() if v}
@@ -305,41 +306,30 @@ def test_replays_count_the_launches_of_their_capture(fake_cuda,
         assert {key: v for key, v in pk.LAUNCHES.items() if v} == {
             key: k * v for key, v in per_period.items()}
     assert g.launches == [per_period, {}]
+    assert [c["launches"] for c in graphed.CAPTURES] == [per_period]
     assert pack_ops.LAUNCHES == {"pack": 0}
 
 
-def test_cuda_graph_switch():
-    """None is eager on the CPU, True there raises, for the engines'
-    runners, the Simulator and the bench's runner; the exact engine has no
-    graph."""
+def test_cuda_graph_switch(monkeypatch):
+    """``cuda_graph`` (on by default) replays graphs only for a state on a
+    CUDA device: on the CPU the engines' runners and the Simulator step the
+    eager loop whatever its value, and capture nothing."""
+    def refused(*args, **kwargs):
+        raise AssertionError("a period graph built for a CPU state")
+    monkeypatch.setattr(graphed, "PeriodGraph", refused)
     params, scene = box_scene()
     for engine in ("fastw", "fast"):
         _, cfg = engine_parts(engine, params, scene)
         args = scene.device_state("cpu")
-        with pytest.raises(ValueError, match="cuda_graph=True"):
-            multi_step(engine, params, scene, cfg, 1, cuda_graph=True)(
-                *args)
-        run = multi_step(engine, params, scene, cfg, RESORT)
-        run(*args)
-        assert run.graphs == {}
-        with pytest.raises(ValueError, match="cuda_graph=True"):
-            Simulator(scene, params, engine=engine, device="cpu",
-                      cuda_graph=True)
-        with pytest.raises(ValueError, match="cuda_graph=True"):
-            bench.run_engine(engine, scene, params, 1, 0.0, "cpu",
-                             block=128, ccol=128, ccol_c=128,
-                             cuda_graph=True)
-    with pytest.raises(ValueError, match="exact engine"):
-        Simulator(scene, params, engine="exact", device="cpu",
-                  cuda_graph=True)
-    with pytest.raises(ValueError, match="exact engine"):
-        bench.run_engine("exact", scene, params, 1, 0.0, "cpu",
-                         cuda_graph=True)
-    sim = Simulator(scene, params, device="cpu",
-                    fast_config=dict(resort_every=RESORT))
-    sim.step(RESORT + 1)
-    assert sim.step_count == RESORT + 1
-    assert all(run.graphs == {} for run in sim._fast_runs.values())
+        outs = [multi_step(engine, params, scene, cfg, RESORT, **kw)(*args)
+                for kw in ({}, dict(cuda_graph=True),
+                           dict(cuda_graph=False))]
+        for out in outs[1:]:
+            assert torch.equal(out.pos, outs[0].pos)
+        sim = Simulator(scene, params, engine=engine, device="cpu",
+                        fast_config=dict(resort_every=RESORT))
+        sim.step(RESORT + 1)
+        assert sim.step_count == RESORT + 1
 
 
 @pytest.mark.cuda
@@ -355,6 +345,7 @@ def test_graphed_period_equals_eager_on_cuda():
         _, cfg = engine_parts(engine, params, scene, device="cuda")
         args = scene.device_state("cuda")
         counts, outs = [], []
+        graphed.CAPTURES.clear()
         for cuda_graph in (False, True):
             run = multi_step(engine, params, scene, cfg, STEPS,
                              cuda_graph=cuda_graph)
@@ -362,7 +353,7 @@ def test_graphed_period_equals_eager_on_cuda():
             outs.append(run(*args))
             torch.cuda.synchronize()
             counts.append(dict(pk.LAUNCHES))
-        assert list(run.graphs) == [(RESORT, args[0].pos.device)]
+        assert [c["r_steps"] for c in graphed.CAPTURES] == [RESORT]
         assert counts[0] == counts[1] and sum(counts[0].values()) > 0
         for f in ("pos", "vel", "muscle_activation", "step"):
             assert torch.equal(getattr(outs[0], f), getattr(outs[1], f)), f
