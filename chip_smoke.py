@@ -171,13 +171,34 @@ them to the kernels the card ran, as the profiler records them):
    ``GRAPH_MAX_LAUNCHES`` kernel launch calls a graphed step), and each
    pair kernel's records on the device held to its launches a step (so
    the card, not the replay's bookkeeping, shows each graph runs every
-   pair kernel as often as the eager loop).
+   pair kernel as often as the eager loop);
+21. the simulator facade on the full worm, graphed, through
+   ``Simulator(engine="auto", device="cuda")``: (a) 45 steps (the first
+   period a step at a time), ``save``, 45 more; a new Simulator
+   ``restore``s and steps 45, and a second ``restore`` into it steps 45
+   again, both bitwise equal to the uninterrupted run, the second capturing
+   no graph; save and restore seconds, the archive's bytes, its keys
+   sph_tpu's; (d) two periods of ``make_fastw_multi_step`` with the walls
+   sorted in the graph (``wall_static=None``) against the hoisted path
+   from that state, positions within 1e-4, exactly one more rho* launch a
+   period, ms/step in turns; the ``raw_sw`` launch (shell rows x wall
+   columns) on one resort's inputs against its plain version as phase 3
+   holds a kernel, timed by CUDA events and profiler device time beside its
+   bound; (c) 60 steps from the checkpoint with a frame every 10 steps,
+   async and sync writes: byte-identical files of 7 frames, ms/step beside
+   the same steps without dumps; (b) 150 steps of the adaptive ladder
+   (threshold 0.25 h) from step 0, each chunk's period, drift bound and
+   overflow, whether the first period outruns the shell, at most 4 graphs,
+   ms/step against the fixed period in turns A F F A, and a profile of each
+   (graph launches, busy, idle); (e) ``python -m sph_tpu_torch run``
+   with a dump and a checkpoint, ``run --restore`` (it must print step 90)
+   and ``info`` in subprocesses. It prints its seconds.
 
 Each phase prints its seconds. ``--only`` runs the named phases alone
 (small: 3-4, box: 5-6, rworm: 7, rworm_engine: 8, worm: 9-10, small_fast:
 11-12, tiny_worm: 13, dam: 14, fast_worm: 15, exact: 16, bench: 17, pack:
-18, ab: 19, graph: 20) while iterating; the run then prints no result
-lines and exits 2.
+18, ab: 19, graph: 20, runtime: 21) while iterating; the run then prints
+no result lines and exits 2.
 
 Ends with a JSON line of per-kernel results (each kernel's numbers from the
 path that runs it at its main shapes, with its launches a step on every
@@ -215,6 +236,7 @@ from sph_tpu_torch.models import muscle
 from sph_tpu_torch.ops import _build
 from sph_tpu_torch.ops import pair_kernels as pk
 from sph_tpu_torch.runtime import Simulator
+from sph_tpu_torch.runtime import checkpoint as CK
 from sph_tpu_torch.scene import (generate_liquid_box_scene,
                                  generate_worm_scene)
 
@@ -326,6 +348,21 @@ GRAPH_PROFILE = 60    # profiled steps, graphed and eager
 # over its 30 steps (the eager worm step makes ~444)
 GRAPH_MAX_LAUNCHES = 5
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaGraphLaunch")
+
+# ---- the simulator facade (phase 21) ----
+RUNTIME_STEPS = 45    # steps before the checkpoint, and after it
+WALL_PERIODS = 2      # periods of the in-graph wall path
+DUMP_STEPS = 60
+DUMP_INTERVAL = 10    # 7 frames: step 0's and six
+LADDER_STEPS = 150
+LADDER_THRESHOLD_H = 0.25
+CLI_TIMEOUT_S = 300
+CLI_SCENE = ["--scene", "worm"]
+CLI_RUN = []                   # more flags of the run commands
+CLI_STEPS, CLI_MORE = 60, 30   # a frame and a period every 30 steps
+# sph_tpu's checkpoint keys (``runtime.checkpoint.KEYS``; a CPU test holds
+# the list to sph_tpu's archive)
+CKPT_KEYS = CK.KEYS
 # the functor of a pair kernel's device name -> its kind in pk.LAUNCHES
 FUNCTOR_KIND = {"Density": "density", "RhoStar": "rho_star",
                 "ViscSurf": "viscsurf", "PAccel": "paccel",
@@ -991,8 +1028,13 @@ def main(argv=None) -> int:
             path: n for path, counts in per_path.items()
             if (n := counts.get(key, 0))}
         check(entry["launches"] > 0, f"{key}: no launch on its path")
+    # each shape's entry beside its kernel's (rho_star_sw after rho_star)
+    names = list(kernels)
+    order = sorted(names, key=lambda k: names.index(
+        k.removesuffix("_sw") if k.removesuffix("_sw") in names else k)
+        + 0.5 * k.endswith("_sw"))
     print(card, flush=True)
-    print(json.dumps({"kernels": list(kernels.values())}), flush=True)
+    print(json.dumps({"kernels": [kernels[k] for k in order]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -2268,6 +2310,332 @@ def graph_phase(card, profile_steps):
     return None
 
 
+# ---------------------------------------------------------------------------
+# the simulator facade: checkpoints, the ladder, dumps, the in-graph wall
+# path and the CLI (phase 21)
+# ---------------------------------------------------------------------------
+
+def worm_sim(worm, params, **kw):
+    """The full worm through ``Simulator(engine="auto", device="cuda")``,
+    graphed (the default); it must resolve to fastw."""
+    sim = Simulator(worm, params, engine="auto", device="cuda", **kw)
+    check(sim.engine == "fastw", f"auto resolved to {sim.engine}")
+    return sim
+
+
+def same_state(a, b):
+    """Positions, velocities, activation and step of two states equal
+    bitwise."""
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("pos", "vel", "muscle_activation", "step"))
+
+
+def synced_s(fn):
+    """Seconds of ``fn()`` ending in a device synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def runtime_checkpoint(worm, params, tmp, card):
+    """21a: 45 steps, save, 45 more; a new Simulator restores and steps 45,
+    bitwise; a second restore into it (its graphs kept) steps 45, bitwise,
+    capturing nothing. Returns (checkpoint path, the first Simulator)."""
+    a = worm_sim(worm, params)
+    first_period(a, "runtime checkpoint")
+    a.step(RUNTIME_STEPS - a._fast_cfg.resort_every)
+    ck = os.path.join(tmp, "worm.npz")
+    t_save = synced_s(lambda: a.save(ck))
+    keys = sorted(np.load(ck).files)
+    check(keys == sorted(CKPT_KEYS + ("color",)),
+          f"checkpoint keys {keys}, expected sph_tpu's {CKPT_KEYS}")
+    a.step(RUNTIME_STEPS)
+    b = worm_sim(worm, params)
+    t_restore = synced_s(lambda: b.restore(ck))
+    check(b.step_count == RUNTIME_STEPS, f"restored at step {b.step_count}")
+    b.step(RUNTIME_STEPS)
+    check(same_state(a.state, b.state), "the restored run differs from the "
+          f"uninterrupted one after {RUNTIME_STEPS} steps: max|dpos| "
+          f"{float((a.state.pos - b.state.pos).abs().max()):.3e}")
+    captures = len(graphed.CAPTURES)
+    t_again = synced_s(lambda: b.restore(ck))
+    b.step(RUNTIME_STEPS)
+    check(same_state(a.state, b.state), "a second restore into the same "
+          "Simulator differs from the uninterrupted run")
+    check(len(graphed.CAPTURES) == captures, "the second restore captured "
+          f"{len(graphed.CAPTURES) - captures} new period graphs")
+    moved = float((a.state.pos - torch.as_tensor(worm.pos,
+                                                  device=a.state.pos.device))
+                  .abs().max())
+    check(moved > 100 * ENGINE_TOL, f"the worm moved only {moved}")
+    print(f"runtime: checkpoint at step {RUNTIME_STEPS}: save "
+          f"{t_save:.3f} s, {os.path.getsize(ck)} B, keys = sph_tpu's; "
+          f"restore into a new Simulator {t_restore:.3f} s, into the same "
+          f"one {t_again:.3f} s (no new graph); {RUNTIME_STEPS} steps on, "
+          f"both runs bitwise equal the uninterrupted one (step "
+          f"{a.step_count}, largest displacement {moved:.3e}) [{card}]",
+          flush=True)
+    graph_stats("runtime checkpoint")
+    return ck, a
+
+
+def runtime_walls(a, params, card):
+    """21d: two periods of the fastw engine with the walls sorted in the
+    graph (``wall_static=None``: ``raw_sw`` once a resort) against the
+    hoisted path from the same state; the raw_sw launch against its plain
+    version on one resort's inputs, timed beside its bound. Returns the
+    kernels-line entry and the launches a step."""
+    state, springs, membranes = a.state, a.springs, a.membranes
+    layout, cfg, ws = a.layout, a._fast_cfg, a._wall_static
+    steps = WALL_PERIODS * cfg.resort_every
+    runs = {key: W.make_fastw_multi_step(params, layout, cfg, steps,
+                                         return_diag=True, wall_static=w)
+            for key, w in (("in-graph", None), ("hoisted", ws))}
+    outs, launches = {}, {}
+    for key, run in runs.items():           # the first call captures
+        out, diag = run(state, springs, membranes)
+        check(int(diag["shell_overflow"]) == 0
+              and int(diag["tile_overflow"]) == 0,
+              f"walls {key}: overflow {diag}")
+        outs[key] = out
+    d = float((outs["in-graph"].pos - outs["hoisted"].pos).abs().max())
+    moved = float((outs["in-graph"].pos - state.pos).abs().max())
+    print(f"runtime walls: {WALL_PERIODS} periods from step "
+          f"{int(state.step)}, walls sorted in the graph vs wall_static: "
+          f"max|dpos| {d:.3e} (<= {ENGINE_TOL:g}), largest displacement "
+          f"{moved:.3e}", flush=True)
+    check(np.isfinite(outs["in-graph"].pos.cpu().numpy()).all()
+          and d <= ENGINE_TOL, f"in-graph walls vs wall_static: {d}")
+    check(moved > 100 * ENGINE_TOL, f"the worm moved only {moved}")
+    times = {k: [] for k in runs}
+    for key in ("hoisted", "in-graph", "in-graph", "hoisted"):
+        for k in pk.LAUNCHES:
+            pk.LAUNCHES[k] = 0
+        times[key].append(synced_s(lambda: runs[key](state, springs,
+                                                     membranes)) * 1e3 / steps)
+        launches[key] = dict(pk.LAUNCHES)
+    extra = launches["in-graph"]["rho_star"] - launches["hoisted"]["rho_star"]
+    check(launches["hoisted"]["rho_star"] == PER_STEP["rho_star"] * steps
+          and extra == WALL_PERIODS
+          and {k: v for k, v in launches["in-graph"].items() if k != "rho_star"}
+          == {k: v for k, v in launches["hoisted"].items() if k != "rho_star"},
+          f"walls in the graph: launches {launches}, expected one more "
+          "rho_star launch a period")
+    print(f"runtime walls: ms/step in turns S G G S (wall_static, in-graph): "
+          f"{times['hoisted'][0]:.4f} {times['in-graph'][0]:.4f} "
+          f"{times['in-graph'][1]:.4f} {times['hoisted'][1]:.4f}; rho_star "
+          f"launches {launches['in-graph']['rho_star']} vs "
+          f"{launches['hoisted']['rho_star']} in {steps} steps [{card}]",
+          flush=True)
+    graph_stats("runtime walls")
+
+    parts = W._make_step_parts_w(params, layout, cfg, wall_static=None)
+    calls = W.record_step_inputs(parts, state, springs, membranes)
+    p, tables, own, slab = calls["raw_sw"]
+    far = box_edge(params)
+    err = compare({"raw_sw": calls["raw_sw"]}, "worm", far)["raw_sw"]
+    ms = time_ms(lambda: p.kernel(tables, own, slab), 20)
+    plain_ms = time_ms(lambda: p.plain(tables, own, slab), 3)
+    dev = device_ms(lambda: p.kernel(tables, own, slab))
+    pairs, bound_ms, by = pass_bound(p, tables, own, slab, far, None)
+    print(f"  worm  raw_sw    kernel {ms:9.4f} ms (device "
+          f"{fmt_ms(dev)})  plain {plain_ms:9.3f} ms  bound {bound_ms:8.5f} "
+          f"ms ({by}, {pairs:.4g} candidate pairs; {p.n_blocks} shell "
+          f"blocks x wall columns {slab.shape[1]}, ccol {p.ccol}) (x1 a "
+          f"period, 1/{cfg.resort_every} a step) [{card}]", flush=True)
+    entry = dict(
+        name="rho_star_sw", route="cuda", source=SOURCE,
+        replaces=REPLACES["rho_star"], launches=extra, max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+        library_ms=None, device_ms=dev,
+        ms_scope=("one launch (one a resort period), shell rows x wall "
+                  "columns, fastw with wall_static=None, full worm"),
+        registers=_regs(shipped_kernel("rho_star", False)))
+    per_step = {k: v / steps for k, v in launches["in-graph"].items()}
+    per_step["rho_star_sw"] = extra / steps
+    return {"rho_star_sw": entry}, {"worm_fastw_walls_in_graph": per_step}
+
+
+def runtime_dumps(worm, params, ck, tmp, card):
+    """21c: 60 steps from the checkpoint with a frame every 10 steps,
+    async and sync writes, byte-identical files of 7 frames; beside them
+    the same steps without dumps, and with a resort every step and no dump
+    (what the single-step periods of a dumped run cost alone), in turns
+    N 1 A S N. Every Simulator's graphs are captured before the turns."""
+    from sph_tpu_torch.scene.io import load_trajectory
+
+    sims, paths = {}, {}
+    for key, kw in (("none", {}), ("single", dict(fast_config=dict(
+                        resort_every=1))),
+                    ("async", dict(async_io=True)),
+                    ("sync", dict(async_io=False))):
+        if key in ("async", "sync"):
+            paths[key] = os.path.join(tmp, "dump_" + key)
+            kw = dict(kw, dump_dir=paths[key], dump_interval=DUMP_INTERVAL)
+        sims[key] = sim = worm_sim(worm, params, **kw)
+        for n in {1, sim._fast_chunk}:      # capture, the state unchanged
+            sim._fast_run_for(n)(sim.state, sim.springs, sim.membranes)
+    graph_stats("runtime dumps")
+    ms = {}
+    for key in ("none", "single", "async", "sync", "none"):
+        sim = sims[key]
+        sim.restore(ck)
+
+        def run():
+            sim.step(DUMP_STEPS)
+            sim.flush()
+        ms.setdefault(key, []).append(synced_s(run) * 1e3 / DUMP_STEPS)
+    files = [open(os.path.join(paths[k], "position_buffer.txt"), "rb").read()
+             for k in ("async", "sync")]
+    frames = load_trajectory(os.path.join(paths["async"],
+                                          "position_buffer.txt"))[2]
+    print(f"runtime dumps: {DUMP_STEPS} steps from step {RUNTIME_STEPS}, a "
+          f"frame every {DUMP_INTERVAL} (single-step periods, as in "
+          f"sph_tpu), turns N 1 A S N: ms/step without dumps "
+          f"{ms['none'][0]:.4f}, a resort every step without dumps "
+          f"{ms['single'][0]:.4f}, dumps async {ms['async'][0]:.4f}, sync "
+          f"{ms['sync'][0]:.4f}, without dumps {ms['none'][1]:.4f}; "
+          f"{len(frames)} frames, {len(files[0])} B, async == sync: "
+          f"{files[0] == files[1]} [{card}]", flush=True)
+    check(files[0] == files[1], "async and sync dumps differ")
+    check(len(frames) == 1 + DUMP_STEPS // DUMP_INTERVAL,
+          f"{len(frames)} frames")
+    check(np.isfinite(frames).all(), "dumped frames not finite")
+    check(not graphed.CAPTURES, "a graph was captured in the timed runs")
+
+
+def runtime_ladder(worm, params, tmp, card):
+    """21b: 150 steps of the adaptive ladder (threshold 0.25 h) from step
+    0, chunk by chunk; ms/step against the fixed period in turns A F F A;
+    profiles of one run each."""
+    graphed.CAPTURES.clear()
+    ad = worm_sim(worm, params, adaptive_resort=True,
+                  drift_threshold_h=LADDER_THRESHOLD_H)
+    ck0 = os.path.join(tmp, "worm0.npz")
+    ad.save(ck0)
+    shell_cells = ad._fast_cfg.dilate - 1
+    rows = []
+    while ad.step_count < LADDER_STEPS:
+        left = LADDER_STEPS - ad.step_count
+        size = ad._fast_chunk if left >= ad._fast_chunk else 1
+        ad.step(size)
+        ovf = ad.check_overflow()
+        rows.append((size, ovf["window_drift_h"], ovf["shell_overflow"],
+                     ovf["tile_overflow"], ad._fast_chunk))
+    check(ad.step_count == LADDER_STEPS, f"ladder at step {ad.step_count}")
+    for i, (size, drift, shell, tile, nxt) in enumerate(rows):
+        print(f"  ladder chunk {i}: period {size}, drift bound "
+              f"{drift:.4f} h, shell overflow {shell}, tile overflow {tile},"
+              f" next period {nxt}", flush=True)
+    first = rows[0]
+    print(f"runtime ladder: the first {first[0]}-step period moves a "
+          f"particle up to {first[1] / 2:.4f} cells (bound; drift "
+          f"{first[1]:.4f} h) against the shell's {shell_cells}: outruns "
+          f"the shell: {first[1] / 2 >= shell_cells}", flush=True)
+    check(all(r[2] == 0 and r[3] == 0 for r in rows),
+          "ladder: shell or tile overflow")
+    n_graphs = len(graphed.CAPTURES)
+    print(f"runtime ladder: {n_graphs} period graphs for period lengths "
+          f"{sorted(ad._fast_runs)} (levels {ad._chunk_levels} and 1)",
+          flush=True)
+    check(n_graphs <= 4 and len(ad._fast_runs) <= 4,
+          f"{n_graphs} graphs, runners {sorted(ad._fast_runs)}")
+    graph_stats("runtime ladder")
+    fixed = worm_sim(worm, params)
+    fixed.step(LADDER_STEPS)                 # its graphs, untimed
+    graph_stats("runtime fixed period")
+    sims = {"A": ad, "F": fixed}
+
+    def reset(sim):
+        sim.restore(ck0)
+        if sim is ad:
+            ad._fast_chunk = ad._chunk_levels[0]
+    ms = {"A": [], "F": []}
+    for k in "AFFA":
+        reset(sims[k])
+        ms[k].append(synced_s(lambda: sims[k].step(LADDER_STEPS)) * 1e3
+                     / LADDER_STEPS)
+    print(f"runtime ladder: {LADDER_STEPS} steps from step 0, A F F A "
+          f"(adaptive / fixed period {ad._fast_cfg.resort_every}): "
+          f"{ms['A'][0]:.4f} {ms['F'][0]:.4f} {ms['F'][1]:.4f} "
+          f"{ms['A'][1]:.4f} ms/step; graphs captured in the timed runs: "
+          f"{len(graphed.CAPTURES)} [{card}]", flush=True)
+    graph_stats("runtime timed")
+    prof = {}
+    for k in "AF":
+        reset(sims[k])
+        prof[k] = profile(sims[k], LADDER_STEPS, card)
+
+    def fmt(x, spec):
+        return "not measured" if x is None else format(x, spec)
+    print(f"runtime ladder: profiled, adaptive vs fixed: wall "
+          f"{prof['A']['wall_ms']:.4f} vs {prof['F']['wall_ms']:.4f} "
+          f"ms/step, cudaGraphLaunch {prof['A']['cudaGraphLaunch'][0]:.3f} vs "
+          f"{prof['F']['cudaGraphLaunch'][0]:.3f} a step "
+          f"({prof['A']['cudaGraphLaunch'][1]:.1f} vs "
+          f"{prof['F']['cudaGraphLaunch'][1]:.1f} us of host), device busy "
+          f"{fmt(prof['A']['busy_ms'], '.4f')} vs "
+          f"{fmt(prof['F']['busy_ms'], '.4f')} ms/step, idle "
+          f"{fmt(prof['A']['idle'], '.3f')} vs {fmt(prof['F']['idle'], '.3f')}"
+          f" [{card}]", flush=True)
+
+
+def runtime_cli(worm, tmp, card):
+    """21e: the CLI on the card in subprocesses: run with a dump and a
+    checkpoint, run on from the checkpoint, info."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    dump, ck = os.path.join(tmp, "cli_dump"), os.path.join(tmp, "cli.npz")
+    outs = []
+    for args in (["run", *CLI_SCENE, *CLI_RUN, "--steps", str(CLI_STEPS),
+                  "--dump", dump, "--dump-every", str(CLI_MORE),
+                  "--checkpoint", ck],
+                 ["run", *CLI_SCENE, *CLI_RUN, "--steps", str(CLI_MORE),
+                  "--restore", ck],
+                 ["info", *CLI_SCENE]):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "sph_tpu_torch", *args],
+                             cwd=REPO, env=env, capture_output=True,
+                             text=True, timeout=CLI_TIMEOUT_S)
+        tail = res.stdout.strip().splitlines()[-3:]
+        print(f"runtime cli: {' '.join(args)}: exit "
+              f"{res.returncode} in {time.perf_counter() - t0:.1f} s; "
+              f"{' | '.join(tail)}", flush=True)
+        check(res.returncode == 0, f"cli {args}: {res.stderr[-2000:]}")
+        outs.append(res.stdout)
+    check(f"[[ step {CLI_STEPS} ]]" in outs[0] and os.path.exists(ck)
+          and os.path.exists(os.path.join(dump, "position_buffer.txt")),
+          f"cli run: no step {CLI_STEPS}, checkpoint or dump")
+    check(f"[[ step {CLI_STEPS + CLI_MORE} ]]" in outs[1],
+          f"the restored cli run did not reach step {CLI_STEPS + CLI_MORE}")
+    info = json.loads(outs[2][outs[2].index("{"):])
+    check(all(info[k] == v for k, v in worm.counts.items()),
+          f"cli info {info} vs {worm.counts}")
+
+
+def runtime_phase(card, profile_steps):
+    # 21. the simulator facade on the full worm: checkpoints, the in-graph
+    # wall path, dumps, the adaptive ladder and the CLI
+    import shutil
+    import tempfile
+
+    params = SimParams()
+    worm = generate_worm_scene(params)
+    tmp = tempfile.mkdtemp(prefix="sph_runtime_")
+    try:
+        graphed.CAPTURES.clear()
+        ck, a = runtime_checkpoint(worm, params, tmp, card)
+        kernels, launches = runtime_walls(a, params, card)
+        del a
+        runtime_dumps(worm, params, ck, tmp, card)
+        runtime_ladder(worm, params, tmp, card)
+        runtime_cli(worm, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(kernels=kernels, launches=launches)
+
+
 # name -> phase(card, profile_steps), in running order; a phase that runs a
 # kernel's main path returns its ``kernels`` entries and launches a step
 PHASES = {"small": small_box_phases, "box": box_phases,
@@ -2276,7 +2644,7 @@ PHASES = {"small": small_box_phases, "box": box_phases,
           "tiny_worm": tiny_worm_phases, "dam": dam_break_phases,
           "fast_worm": fast_worm_phases, "exact": exact_phases,
           "bench": bench_phase, "pack": pack_phase, "ab": ab_phase,
-          "graph": graph_phase}
+          "graph": graph_phase, "runtime": runtime_phase}
 
 
 if __name__ == "__main__":

@@ -1,15 +1,26 @@
 """Command-line interface (counterpart of ``sph_tpu/cli.py``).
 
-    python -m sph_tpu_torch run --scene worm|box [--box 30,20,250]
-        [--fill 0.15] --steps N [--engine auto|exact|fast|fastw]
+    python -m sph_tpu_torch run --scene worm|box|CONFIG_DIR [--box 30,20,250]
+        [--fill 0.15] [--dt S] --steps N [--engine auto|exact|fast|fastw]
         [--device cuda|cpu] [--ccol N] [--ccol-c N] [--resort-every N]
+        [--adaptive-resort] [--dump DIR --dump-every K]
+        [--checkpoint PATH] [--restore PATH]
+        [--render-every K --render-dir DIR] [-v]
+    python -m sph_tpu_torch replay --buffers DIR --render DIR [--every K]
+        [--gif PATH --fps F]
+    python -m sph_tpu_torch info --scene ...
+    python -m sph_tpu_torch genscene --scene ... --out DIR
 
-prints the same scene and timing lines as ``python -m sph_tpu run``. Only
-the ``run`` subcommand on the generated scenes is ported so far.
+The same subcommands, flags and output lines as ``python -m sph_tpu``; the
+reference's three flags map as there (``-l_to`` -> ``run --dump``,
+``-l_from`` -> ``replay``, graphics -> ``run --render-every``). ``--device``
+(default cuda) picks the card's kernels or the CPU's plain versions.
+Rendering (``--render-every``, ``replay``) needs matplotlib and PIL.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -18,31 +29,49 @@ def _make_params(args):
     from .config import SimParams
 
     kw = {}
-    if args.box:
+    if getattr(args, "box", None):
         bx, by, bz = (float(v) for v in args.box.split(","))
         h = 3.34
         kw.update(x_max=bx * h, y_max=by * h, z_max=bz * h)
+    if getattr(args, "dt", None):
+        kw["time_step"] = args.dt
     return SimParams(**kw)
+
+
+def _make_scene(args, params):
+    from .scene import generate_liquid_box_scene, generate_worm_scene, io
+
+    if args.scene == "worm":
+        return generate_worm_scene(params)
+    if args.scene == "box":
+        return generate_liquid_box_scene(
+            params, fill_fraction=getattr(args, "fill", 0.15))
+    return io.load_scene(args.scene)  # a config directory
 
 
 def cmd_run(args) -> int:
     from .runtime import Simulator
-    from .scene import generate_liquid_box_scene, generate_worm_scene
 
     params = _make_params(args)
     t0 = time.time()
-    if args.scene == "worm":
-        scene = generate_worm_scene(params)
-    else:
-        scene = generate_liquid_box_scene(params, fill_fraction=args.fill)
+    scene = _make_scene(args, params)
     print(f"scene: {scene.counts} ({time.time() - t0:.1f}s)")
 
     fck = {k: v for k, v in (
         ("ccol", args.ccol), ("ccol_c", args.ccol_c),
         ("resort_every", args.resort_every)) if v is not None}
-    sim = Simulator(scene, params, engine=args.engine, device=args.device,
-                    fast_config=fck or None)
+    sim = Simulator(
+        scene, params, engine=args.engine, device=args.device,
+        fast_config=fck or None, dump_dir=args.dump,
+        dump_interval=args.dump_every,
+        adaptive_resort=args.adaptive_resort,
+        log=print if args.verbose else None,
+    )
     print(f"engine: {sim.engine}")
+    if args.restore:
+        sim.restore(args.restore)
+        print(f"restored from {args.restore} at step {sim.step_count}")
+
     chunk = max(1, args.report_every)
     done = 0
     while done < args.steps:
@@ -51,6 +80,58 @@ def cmd_run(args) -> int:
         done += n
         print(f"[[ step {sim.step_count} ]]  {ms / n:8.3f} ms/step "
               f"({1e3 / (ms / n):.1f} steps/s)")
+        if args.render_every and sim.step_count % args.render_every == 0:
+            from .viz import render_frame
+
+            out = f"{args.render_dir}/step_{sim.step_count:06d}.png"
+            render_frame(
+                sim.get_position(), scene.ptype, out,
+                springs=(scene.spring_rows, scene.spring_idx,
+                         scene.spring_type),
+                tris=scene.tris,
+                activation=sim.get_muscle_activation(),
+                hud=True, counts=scene.counts, step=sim.step_count,
+                time_step=params.time_step,
+            )
+            print(f"rendered {out}")
+    if args.checkpoint:
+        sim.save(args.checkpoint)
+        print(f"checkpoint -> {args.checkpoint}")
+    sim.flush()  # drain the async trajectory stream before exit
+    return 0
+
+
+def cmd_replay(args) -> int:
+    from .viz import frames_to_gif, render_trajectory
+
+    paths = render_trajectory(
+        f"{args.buffers}/position_buffer.txt", args.render,
+        every=args.every,
+    )
+    print(f"rendered {len(paths)} frames -> {args.render}")
+    if args.gif:
+        print(f"gif -> {frames_to_gif(paths, args.gif, fps=args.fps)}")
+    return 0
+
+
+def cmd_info(args) -> int:
+    params = _make_params(args)
+    scene = _make_scene(args, params)
+    info = dict(scene.counts)
+    info["n_particles"] = scene.n_particles
+    info["grid_dims"] = params.grid_dims
+    info["delta"] = params.delta
+    print(json.dumps(info, indent=2, default=str))
+    return 0
+
+
+def cmd_genscene(args) -> int:
+    from .scene import io
+
+    params = _make_params(args)
+    scene = _make_scene(args, params)
+    io.save_scene(scene, args.out)
+    print(f"wrote {scene.n_particles} particles -> {args.out}")
     return 0
 
 
@@ -60,17 +141,30 @@ def main(argv=None) -> int:
         description="PCISPH (Electrofluid) on PyTorch + CUDA",
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    def add_scene_args(p):
+        p.add_argument("--scene", default="worm",
+                       help="worm = the worm in its pool (elastic shell, "
+                            "membranes, muscles); box = generated "
+                            "pure-liquid box; else a config directory "
+                            "(position.txt, velocity.txt, "
+                            "elasticconnections.txt)")
+        p.add_argument("--box", default=None,
+                       help="world box in h units, e.g. '30,20,250'")
+        p.add_argument("--dt", type=float, default=None)
+        p.add_argument("--fill", type=float, default=0.15,
+                       help="liquid fill fraction for the box scene")
+
     p = sub.add_parser("run", help="simulate")
-    p.add_argument("--scene", default="worm", choices=["worm", "box"],
-                   help="worm = the worm in its pool (elastic shell, "
-                        "membranes, muscles); box = generated pure-liquid "
-                        "box")
-    p.add_argument("--box", default=None,
-                   help="world box in h units, e.g. '30,20,250'")
-    p.add_argument("--fill", type=float, default=0.15,
-                   help="liquid fill fraction for the box scene")
+    add_scene_args(p)
     p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--dump", default=None, help="dump buffers dir (-l_to)")
+    p.add_argument("--dump-every", type=int, default=10)
     p.add_argument("--report-every", type=int, default=100)
+    p.add_argument("--render-every", type=int, default=0)
+    p.add_argument("--render-dir", default="frames")
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--restore", default=None)
     p.add_argument("--engine", default="auto",
                    choices=["auto", "exact", "fast", "fastw"],
                    help="exact = neighbour lists (the reference's nearest "
@@ -82,6 +176,10 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (Hopper kernels) or cpu "
                         "(plain PyTorch pair passes)")
+    p.add_argument("--adaptive-resort", action="store_true",
+                   help="fast/fastw engines: shorten the resort period "
+                        "while the in-period window-drift bound exceeds "
+                        "0.25 h (see Simulator.adaptive_resort)")
     p.add_argument("--ccol", type=int, default=None,
                    help="main pair-pass tile width (multiple of 128; "
                         "default: fast 256, fastw 512)")
@@ -90,7 +188,27 @@ def main(argv=None) -> int:
                         "width (default: fast ccol, fastw 256)")
     p.add_argument("--resort-every", type=int, default=None,
                    help="steps between spatial resorts (default 30)")
+    p.add_argument("-v", "--verbose", action="store_true")
     p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser("replay", help="render a dumped trajectory (-l_from)")
+    p.add_argument("--buffers", default="buffers")
+    p.add_argument("--render", default="frames")
+    p.add_argument("--every", type=int, default=1)
+    p.add_argument("--gif", default=None, metavar="PATH",
+                   help="also assemble the frames into an animated GIF")
+    p.add_argument("--fps", type=float, default=10.0)
+    p.set_defaults(fn=cmd_replay)
+
+    p = sub.add_parser("info", help="print scene statistics")
+    add_scene_args(p)
+    p.set_defaults(fn=cmd_info)
+
+    p = sub.add_parser("genscene", help="generate a scene to config files")
+    add_scene_args(p)
+    p.add_argument("--out", required=True)
+    p.set_defaults(fn=cmd_genscene)
+
     args = ap.parse_args(argv)
     return args.fn(args)
 

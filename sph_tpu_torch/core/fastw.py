@@ -15,9 +15,10 @@ Differences from the JAX module:
 * a resort period is captured once as a CUDA graph and replayed
   (``core.graphed``) where the JAX module jits the nested ``lax.scan``; on
   the CPU, or with ``cuda_graph=False``, a Python loop runs it;
-* the wall sort and wall-wall density sums always come from
-  :func:`precompute_wall_static` (the in-graph ``raw_sw`` wall path of the
-  JAX module is not ported);
+* with ``wall_static=None`` the walls are sorted in every resort and
+  their wall-wall density sums come from the ``raw_sw`` pass (shell rows x
+  wall columns), as in the JAX module; with the
+  :func:`precompute_wall_static` result both are constant-table lookups;
 * the spring and membrane slab packs are buffers of the sort context: their
   static rows (partner ids, rest lengths, pad columns) are written once per
   resort, the position, activation and triangle rows in place every step;
@@ -298,16 +299,19 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
     """Build the wall-compact step stages: same stage order and physics as
     ``sph_tpu/core/fastw.py:_make_step_parts_w`` (sphFluid.cl stage
     sequence); moving rows only in the carry, shell walls recomputed per
-    step, deep walls absent. ``wall_static`` is the
-    :func:`precompute_wall_static` result (required when the scene has
-    walls)."""
+    step, deep walls absent.
+
+    ``wall_static``: optional :func:`precompute_wall_static` result. When
+    given, the per-resort wall sort and the shell x wall ``raw_sw`` density
+    pass are replaced by constant-table lookups (walls never move). When
+    None the in-graph path runs: the walls are sorted from the state's
+    positions and ``raw_sw`` sums their mutual density terms at every
+    resort (the two paths differ only by the f32 summation order of the
+    wall-wall sums)."""
     if layout.n_elastic > 0 and not layout.springs_elastic_only:
         raise ValueError(
             "fastw requires elastic-only spring anchors (wall rows are not "
             "addressable in the moving-compact sorted space)")
-    if cfg.n_wall > 0 and wall_static is None:
-        raise ValueError("a scene with walls needs wall_static="
-                         "precompute_wall_static(...)")
     f32 = np.float32
     inv_h2 = f32(1.0 / (params.h * params.h))
     inv_h = f32(1.0 / params.h)
@@ -342,6 +346,11 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
             k_spring=f32(params.k_spring), n_slots=layout.spring_slots,
             ccol=ccol_c, n_blocks=nb_m, **kw),
     )
+    if wall_static is None and cfg.n_wall > 0:
+        # shell rows x wall columns: the walls' mutual density sums, once a
+        # resort period
+        passes["raw_sw"] = pk.make_rho_star_pass(
+            ccol=ccol_c, n_blocks=nb_s, c_rho=c_rho, raw=True, **kw)
     spring_pass = passes["spring_ms"]
     n_slots = layout.spring_slots
     muscle_force = float(f32(params.muscle_force))
@@ -370,6 +379,8 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
     hi_box = [float(f32(b - 1e-6)) for b in params.box_max]
     # pad rows of the moving space are pinned (they carry `far`)
     pad_mask = torch.arange(cfg.n_pad, device=dev) >= n_mov
+    # width of the sorted wall pack of the in-graph wall path
+    wall_alloc = -(-max(n_wall, 1) // ALIGN) * ALIGN + ccol_c
 
     def sort_ctx(state: FluidState, springs: Springs, membranes: Membranes):
         pencil_m, cid_m = F._cells(state.pos[mov_ids], params, cfg.dims)
@@ -390,15 +401,29 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
             shell_overflow=torch.zeros((), dtype=torch.int32, device=dev),
         )
         if n_wall > 0:
-            _sort_shell(ctx, diag, cid_m, pstart_m, first_m, last_m, bidx)
+            _sort_shell(ctx, diag, _wall_sort(state), cid_m, pstart_m,
+                        first_m, last_m, bidx)
         if springs.n_elastic > 0 or membranes.n_tris > 0:
             _sort_elastic(ctx, state, springs, membranes, orig_of_sorted,
                           pencil_ms, pranges)
         return ctx, diag
 
-    def _sort_shell(ctx, diag, cid_m, pstart_m, first_m, last_m, bidx):
-        # ---- shell selection over the presorted walls ----
-        ws = wall_static
+    def _wall_sort(state):
+        """The walls in cell order: positions, normals, pencils and cell
+        ids (``wall_static``'s, or sorted here from the state)."""
+        if wall_static is not None:
+            return wall_static
+        pw = state.pos[wall_lo:wall_hi]
+        nw = state.normal[wall_lo:wall_hi]
+        pencil_w, cid_w = F._cells(pw, params, cfg.dims)
+        order_w = torch.argsort(cid_w, stable=True)
+        pw, nw = pw[order_w], nw[order_w]
+        return dict(x=pw[:, 0], y=pw[:, 1], z=pw[:, 2], nx=nw[:, 0],
+                    ny=nw[:, 1], nz=nw[:, 2], pencil=pencil_w[order_w],
+                    cid=cid_w[order_w])
+
+    def _sort_shell(ctx, diag, ws, cid_m, pstart_m, first_m, last_m, bidx):
+        # ---- shell selection over the sorted walls ----
         cap = cfg.shell_cap
         shell_flag = _shell_of(cid_m, ws["cid"], cfg)
         n_sh = shell_flag.sum().to(torch.int32)
@@ -452,14 +477,33 @@ def _make_step_parts_w(params: SimParams, layout: SceneLayout,
                             .long()]
         t_sm = _cross_tables(first_s, last_s, pstart_m, nx, npen, nb_s, ccol)
         ctx["tables_sm"] = _gate(t_sm, sbidx * B < n_sh)
-        # walls never move: their mutual density sums are precomputed once
-        # on the host (f64) — gather the shell's rows
-        ctx["ww_const"] = torch.where(real, ws["ww"][safe], 0.0)
         diag["tile_overflow"] = (
             diag["tile_overflow"]
             + _table_overflow(ctx["tables_ms"], ccol_c, nb_m)
             + _table_overflow(ctx["tables_sm"], ccol, nb_s)
         )
+        if wall_static is not None:
+            # walls never move: their mutual density sums are precomputed
+            # once on the host (f64) — gather the shell's rows
+            ctx["ww_const"] = torch.where(real, ws["ww"][safe], 0.0)
+            return
+        # shell rows -> wall cols: the wall-wall sums of this resort
+        pencil_ws = ws["pencil"]
+        pstart_w = torch.searchsorted(
+            pencil_ws,
+            torch.arange(npen + 1, dtype=pencil_ws.dtype, device=dev),
+            right=False, out_int32=True,
+        )
+        t_sw = _gate(_cross_tables(first_s, last_s, pstart_w, nx, npen, nb_s,
+                                   ccol_c), sbidx * B < n_sh)
+        wall_pack = F._pack([_pad_to(ws["x"], wall_alloc, far),
+                             _pad_to(ws["y"], wall_alloc, far),
+                             _pad_to(ws["z"], wall_alloc, far)])
+        # the raw sums hold each wall's own self term: subtracted here once
+        ctx["ww_const"] = passes["raw_sw"](t_sw, ctx["shell_pos_pack"],
+                                           wall_pack) - self3
+        diag["tile_overflow"] = (diag["tile_overflow"]
+                                 + _table_overflow(t_sw, ccol_c, nb_s))
 
     def _sort_elastic(ctx, state, springs, membranes, orig_of_sorted,
                       pencil_ms, pranges):

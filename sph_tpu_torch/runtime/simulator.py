@@ -2,11 +2,14 @@
 ``sph_tpu/runtime/simulator.py``).
 
 Owns the device state, steps the physics (the fast engines in chunks of
-one resort period), and surfaces the engine's overflow diagnostics loudly.
-The exact, fast and wall-compact (fastw) engines are ported; on the card
-the fast engines replay each resort period from a CUDA graph
-(``core.graphed``). Trajectory dumps, checkpoints, the adaptive resort
-ladder and the multi-GPU engine are not ported yet (ROADMAP Queue 1).
+one resort period), surfaces the engine's overflow diagnostics loudly,
+drives trajectory dumps every ``dump_interval`` steps (through the async
+writer, ``runtime.async_io``), saves and restores checkpoints that load in
+either package (``runtime.checkpoint``) and moves the resort period along
+the adaptive ladder. The exact, fast and wall-compact (fastw) engines are
+ported; on the card the fast engines replay each resort period from a CUDA
+graph (``core.graphed``), one graph a period length. The multi-GPU engine
+is not ported yet (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -18,7 +21,9 @@ import torch
 
 from ..config import SimParams
 from ..constants import MUSCLE_COUNT
+from ..scene.io import TrajectoryDumper
 from ..scene.scene import Scene
+from .checkpoint import load_checkpoint, save_checkpoint
 from .timing import StepTimer
 
 logger = logging.getLogger("sph_tpu_torch")
@@ -54,6 +59,10 @@ class Simulator:
         dump_dir: str | None = None,
         adaptive_resort: bool = False,
         cuda_graph: bool = True,
+        dump_interval: int = 10,
+        async_io: bool = True,
+        drift_threshold_h: float = 0.25,
+        log=None,
     ):
         """engine: "auto" (see :func:`resolve_auto_engine`), "exact" (the
         neighbour-list engine, the reference's nearest 32 within h;
@@ -68,14 +77,25 @@ class Simulator:
         cuda_graph: on the card, the fast engines replay each resort
         period from a CUDA graph captured at its first step
         (``core.graphed``); False, or the CPU, steps the eager loop. The
-        exact engine has no graph."""
-        if dump_dir is not None:
-            raise NotImplementedError(
-                "trajectory dumps: ROADMAP Queue 1 (trajectory I/O)")
-        if adaptive_resort:
-            raise NotImplementedError(
-                "adaptive resort: ROADMAP Queue 1 (the adaptive resort "
-                "ladder)")
+        exact engine has no graph.
+
+        dump_dir: write ``position_buffer.txt`` (and the spring and
+        membrane buffers) there, a frame at step 0 and every
+        ``dump_interval`` steps (``scene.io.TrajectoryDumper``). async_io
+        (default True): frames and ``save(wait=False)`` checkpoints are
+        written by a side thread (``runtime.async_io``), the device->host
+        copy enqueued at submit; ``flush()`` drains it. False writes
+        synchronously.
+
+        adaptive_resort (fast/fastw engines): after each chunk longer than
+        one step the simulator reads the chunk's pair-approach bound (2x
+        the summed per-step max displacement, in h) and halves the resort
+        period while it exceeds ``drift_threshold_h``, doubling it back
+        when it falls below 0.4x the threshold. The period moves between
+        resort_every, /2 and /4; on the card each level is one period
+        graph. Costs one host read per chunk.
+
+        log: a callable for the step timer's ``report`` lines."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is "
@@ -92,6 +112,7 @@ class Simulator:
             raise ValueError(f"unknown engine {engine!r}")
         self._cuda_graph = cuda_graph
         self.engine = engine
+        self.dump_interval = dump_interval
 
         fck = dict(fast_config or {})
         if engine == "exact":
@@ -121,6 +142,8 @@ class Simulator:
             self._wall_static = precompute_wall_static(
                 scene.pos, scene.normal, self.params, self.layout,
                 self._fast_cfg)
+        self._adaptive = adaptive_resort and engine != "exact"
+        self._drift_threshold_h = float(drift_threshold_h)
         if engine != "exact":
             # one resort period a chunk, so every chunk re-sorts exactly
             # once
@@ -129,10 +152,23 @@ class Simulator:
             # build the period runner now: a scene the engine cannot step
             # fails here, not at the first step
             self._fast_run_for(self._fast_chunk)
+        if self._adaptive:
+            # descending period ladder: resort_every, /2, /4 (>= 1)
+            self._chunk_levels = sorted(
+                {max(1, self._fast_chunk >> k) for k in range(3)},
+                reverse=True)
         self.state, self.springs, self.membranes = scene.device_state(
             self.device)
         self._reset_diag()
-        self.timer = StepTimer(device=self.device)
+        self.timer = StepTimer(device=self.device, log=log)
+        self._dumper = TrajectoryDumper(dump_dir, scene) if dump_dir else None
+        self._writer = None
+        if async_io:
+            from .async_io import AsyncWriter
+
+            self._writer = AsyncWriter()
+        if self._dumper:
+            self._dump_frame(check=False)
 
     def _reset_diag(self):
         z = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -181,11 +217,13 @@ class Simulator:
             return multi_step(self.state, self.springs, self.membranes,
                               self.params, self.layout, n)
         # chunks of one resort period (+ single steps for the remainder),
-        # so every chunk re-sorts exactly once, as in sph_tpu
+        # so every chunk re-sorts exactly once, as in sph_tpu; the adaptive
+        # ladder moves the period between chunks
         state = self.state
         remaining = n
         while remaining > 0:
-            size = self._fast_chunk if remaining >= self._fast_chunk else 1
+            chunk = self._fast_chunk
+            size = chunk if remaining >= chunk else 1
             state, diag = self._fast_run_for(size)(
                 state, self.springs, self.membranes)
             remaining -= size
@@ -195,6 +233,9 @@ class Simulator:
                 if k in diag:
                     setattr(self, "_" + k, torch.maximum(
                         getattr(self, "_" + k), diag[k]))
+            self._last_drift = diag["window_drift"]
+            if self._adaptive and size > 1:
+                self._climb_ladder(chunk)
         # fastw's shell overflow = moving-wall pairs DROPPED (wrong forces
         # near the wall with no other signal) — loud at the run site: one
         # scalar host sync per user-level step() call
@@ -208,9 +249,54 @@ class Simulator:
             )
         return state
 
+    def _climb_ladder(self, chunk: int) -> None:
+        """One scalar host read a chunk: the chunk's pair-approach bound
+        decides the NEXT period (sph_tpu's rule, hysteresis included)."""
+        ratio = 2.0 * float(self._last_drift) / self.params.h
+        lv = self._chunk_levels
+        i = lv.index(chunk) if chunk in lv else 0
+        if ratio > self._drift_threshold_h and i + 1 < len(lv):
+            self._fast_chunk = lv[i + 1]
+            logger.info("adaptive resort: drift bound %.2f h > %.2f — "
+                        "period %d -> %d", ratio, self._drift_threshold_h,
+                        chunk, lv[i + 1])
+        elif ratio < 0.4 * self._drift_threshold_h and i > 0:
+            # doubling the period roughly doubles the bound: step up only
+            # when even 2x stays clearly under the threshold
+            self._fast_chunk = lv[i - 1]
+
     def step(self, n: int = 1) -> None:
-        """Advance n steps."""
-        self.state = self._run(n)
+        """Advance n steps; with a ``dump_dir``, run to each dump boundary
+        and dump a frame there (as sph_tpu does: an interval shorter than
+        the resort period makes every chunk of the run shorter too)."""
+        if self._dumper is None:
+            self.state = self._run(n)
+            return
+        done = 0
+        while done < n:
+            upto = min(
+                n - done,
+                self.dump_interval - self.step_count % self.dump_interval,
+            )
+            self.state = self._run(upto)
+            done += upto
+            if self.step_count % self.dump_interval == 0:
+                self._dump_frame()
+
+    def _dump_frame(self, check: bool = True) -> None:
+        """Append the current positions to the trajectory; with ``check``,
+        read the overflow diagnostics too (the positions are on the host
+        then anyway)."""
+        if self._writer is not None:
+            # the frame's formatting overlaps the next chunk on the IO thread
+            self._writer.submit(self._dumper.append, self.state.pos)
+            if check:
+                self.check_overflow()
+        else:
+            pos = self.get_position()
+            self._dumper.append(pos)
+            if check:
+                self.check_overflow(pos)
 
     def step_blocking(self, n: int = 1) -> float:
         """Step and wait for the device; returns wall-clock milliseconds."""
@@ -218,7 +304,7 @@ class Simulator:
         self.step(n)
         return self.timer.elapsed_ms
 
-    def check_overflow(self) -> dict:
+    def check_overflow(self, pos: np.ndarray | None = None) -> dict:
         """Read-and-reset diagnostics since the last check. The exact
         engine: ``cell_overflow``, particles beyond ``cell_capacity`` in
         their 2h cell at the current positions (dropped neighbour
@@ -228,12 +314,16 @@ class Simulator:
         ``tile_table_stats``, as sph_tpu does), fastw's shell overflow
         (dropped moving-wall pairs), and the worst per-resort-period
         pair-approach bound in units of h (2x the summed per-step max
-        displacement). Warns on any overflow and on drift > 0.25 h."""
+        displacement). Warns on any overflow and on drift > 0.25 h.
+        ``pos``: the current positions on the host, where the caller has
+        them."""
+        if pos is None and self.engine in ("exact", "fast"):
+            pos = self.get_position()
         if self.engine == "exact":
             from ..core.grid import max_cell_occupancy
 
             out = {"cell_overflow": max(
-                0, max_cell_occupancy(self.get_position(), self.params)
+                0, max_cell_occupancy(pos, self.params)
                 - self.params.cell_capacity)}
             if out["cell_overflow"]:
                 logger.warning(
@@ -246,8 +336,7 @@ class Simulator:
             from ..core.fast import tile_caps, tile_table_stats
 
             cfg = self._fast_cfg
-            tmax, ttot = tile_table_stats(self.get_position(), self.params,
-                                          cfg)
+            tmax, ttot = tile_table_stats(pos, self.params, cfg)
             smax, per_block = tile_caps(cfg.ccol)
             out["tile_overflow"] = (max(0, tmax - smax)
                                     + max(0, ttot - cfg.n_blocks * per_block))
@@ -297,6 +386,15 @@ class Simulator:
         return {k: v.cpu().numpy()
                 for k, v in diagnostics(self.state, self.params).items()}
 
+    def get_elastic_connections(self):
+        """(partner ids, rest lengths, muscle ids), each [Ne, 32]."""
+        return (self.springs.idx.cpu().numpy(),
+                self.springs.rest.cpu().numpy(),
+                self.springs.muscle.cpu().numpy())
+
+    def get_membranes(self) -> np.ndarray:
+        return self.membranes.tris.cpu().numpy()
+
     def get_muscle_activation(self) -> np.ndarray:
         return self.state.muscle_activation.cpu().numpy()
 
@@ -311,10 +409,102 @@ class Simulator:
             self.state,
             muscle_activation=torch.as_tensor(act, device=self.device))
 
+    # ------------------------------------------------------------------
+    # checkpoint / resume
+    # ------------------------------------------------------------------
+
     def save(self, path: str, wait: bool = True) -> None:
-        raise NotImplementedError("checkpoints: ROADMAP Queue 1 "
-                                  "(checkpoints)")
+        """Checkpoint the full state (atomic write; sph_tpu's npz keys).
+        ``wait=False`` hands the write to the async IO thread (with
+        ``async_io=True``): the device->host copy is enqueued now, the npz
+        compression overlaps further stepping; call :meth:`flush` before
+        reading the file."""
+        args = (path, self.state, self.springs, self.membranes)
+        if not wait and self._writer is not None:
+            self._writer.submit(save_checkpoint, *args,
+                                color=self.scene.color)
+            return
+        save_checkpoint(*args, color=self.scene.color)
+
+    def flush(self) -> None:
+        """Drain pending async trajectory/checkpoint writes (re-raises
+        any IO error from the worker thread)."""
+        if self._writer is not None:
+            self._writer.flush()
 
     def restore(self, path: str) -> None:
-        raise NotImplementedError("checkpoints: ROADMAP Queue 1 "
-                                  "(checkpoints)")
+        """Continue from a checkpoint of either package. The engine's
+        configuration, ``wall_static`` and period graphs were built from
+        this Simulator's scene, so:
+
+        (a) a checkpoint whose particle count, types (``ptype``) or
+        ``normal`` differ, or whose walls (the boundary range's positions)
+        sit elsewhere, raises ValueError naming what differs (its wall
+        constants would be stale);
+        (b) otherwise, where its springs or membranes differ, they replace
+        this Simulator's and the period runners are built anew (the next
+        step captures new graphs);
+        (c) otherwise the Simulator keeps its own reference tensors and
+        takes only ``pos``, ``vel``, ``muscle_activation`` and ``step``, so
+        its period graphs replay on."""
+        state, springs, membranes, color = load_checkpoint(path, "cpu")
+        self._check_restorable(state)
+        if not (_same(springs, self.springs)
+                and _same(membranes, self.membranes)):
+            self._replace_elastic(springs, membranes)
+        self.state = dataclasses.replace(self.state, **{
+            f: getattr(state, f).to(self.device)
+            for f in ("pos", "vel", "muscle_activation", "step")})
+        if color is not None:
+            self.scene.color = color
+
+    def _check_restorable(self, state) -> None:
+        sc = self.scene
+        what = []
+        if state.pos.shape != self.state.pos.shape:
+            raise ValueError(
+                f"checkpoint holds {state.pos.shape[0]} particles, this "
+                f"Simulator's scene {sc.n_particles}")
+        if not np.array_equal(state.ptype.numpy(), sc.ptype):
+            what.append("ptype (the particle types and their ranges)")
+        b0, b1 = self.layout.boundary_range
+        if not np.array_equal(state.pos[b0:b1].numpy(), sc.pos[b0:b1]):
+            what.append(f"the wall positions (rows {b0}:{b1})")
+        if not np.array_equal(state.normal.numpy(),
+                              np.asarray(sc.normal, np.float32)):
+            what.append("normal")
+        if what:
+            raise ValueError(
+                "checkpoint differs from the scene this Simulator's engine "
+                f"was built from in {', '.join(what)}: its wall constants "
+                "and period graphs would be stale; build a Simulator from "
+                "the checkpoint's scene")
+
+    def _replace_elastic(self, springs, membranes) -> None:
+        """New springs or membranes: the layout's spring facts anew, the
+        period runners dropped and the current one built (a scene the
+        engine cannot step fails here)."""
+        sc = self.scene
+        layout = dataclasses.replace(
+            sc, spring_rows=springs.row_ids.numpy(),
+            spring_idx=springs.idx.numpy(),
+            spring_rest=springs.rest.numpy(),
+            spring_type=springs.muscle.numpy().astype(np.float32),
+            tris=membranes.tris.numpy()).layout()
+        self.springs = dataclasses.replace(springs, **{
+            f.name: getattr(springs, f.name).to(self.device)
+            for f in dataclasses.fields(springs)})
+        self.membranes = dataclasses.replace(membranes, **{
+            f.name: getattr(membranes, f.name).to(self.device)
+            for f in dataclasses.fields(membranes)})
+        self.layout = layout
+        if self.engine != "exact":
+            self._fast_runs = {}
+            self._fast_run_for(self._fast_chunk)
+
+
+def _same(a, b) -> bool:
+    """Two Springs (or Membranes) hold equal tensors, field for field."""
+    return all(
+        torch.equal(getattr(a, f.name), getattr(b, f.name).cpu())
+        for f in dataclasses.fields(a))

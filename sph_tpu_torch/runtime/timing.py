@@ -12,11 +12,14 @@ import torch
 
 
 class StepTimer:
-    """Wall-clock milliseconds since the last ``refresh``."""
+    """Wall-clock milliseconds since the last ``refresh``; ``report``
+    prints (through ``log``) and accumulates named sections."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cpu", log=None):
         self._cuda = torch.device(device).type == "cuda"
-        self._t0 = time.perf_counter()
+        self._log = log
+        self._t0 = self._t1 = time.perf_counter()
+        self.sections: dict[str, float] = {}
 
     def _now(self) -> float:
         if self._cuda:
@@ -24,7 +27,18 @@ class StepTimer:
         return time.perf_counter()
 
     def refresh(self) -> None:
-        self._t0 = self._now()
+        self._t0 = self._t1 = self._now()
+
+    def report(self, label: str) -> float:
+        """Milliseconds since the last refresh or report, added to
+        ``sections[label]`` and logged."""
+        now = self._now()
+        ms = (now - self._t1) * 1e3
+        self._t1 = now
+        self.sections[label] = self.sections.get(label, 0.0) + ms
+        if self._log:
+            self._log(f"{label}: \t{ms:9.3f} ms")
+        return ms
 
     @property
     def elapsed_ms(self) -> float:

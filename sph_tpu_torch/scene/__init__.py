@@ -1,4 +1,5 @@
 from .scene import Scene
 from .worm import generate_liquid_box_scene, generate_worm_scene
+from . import io
 
-__all__ = ["Scene", "generate_liquid_box_scene", "generate_worm_scene"]
+__all__ = ["Scene", "generate_liquid_box_scene", "generate_worm_scene", "io"]

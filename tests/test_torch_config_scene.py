@@ -197,7 +197,11 @@ def test_port_imports_no_jax():
         "sph_tpu_torch.__path__, 'sph_tpu_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert len(mods) >= 17, mods\n"
+        "assert len(mods) >= 22, mods\n"
+        "assert {'sph_tpu_torch.runtime.async_io', "
+        "'sph_tpu_torch.runtime.checkpoint', 'sph_tpu_torch.scene.io', "
+        "'sph_tpu_torch.viz.render', 'sph_tpu_torch.cli'} <= set(mods), "
+        "mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'sph_tpu' or m.startswith('sph_tpu.')]\n"
         "assert not bad, bad\n"

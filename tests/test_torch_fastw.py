@@ -453,9 +453,10 @@ def test_port_steps_reduced_worm(worm):
         assert any(bool(o.abs().max() > 0) for o in p(tables, own, slab))
 
 
-def test_unported_paths_raise():
-    """The halo engine, dumps, the adaptive resort and checkpoints raise;
-    a wall-free blob, which auto sends to the fast engine, steps."""
+def test_unported_paths_raise(tmp_path):
+    """The halo engine raises; dumps, the adaptive resort and checkpoints,
+    ported since, no longer do; a wall-free blob, which auto sends to the
+    fast engine, steps."""
     params = params_from(JParams(**BOX))
     box = generate_liquid_box_scene(params, fill_fraction=0.5)
     blob = port_scene(sparse_blob_scene(JParams(**BOX)))
@@ -467,12 +468,16 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError,
                        match="multi-GPU, ROADMAP Queue 1"):
         Simulator(box, params, engine="halo", device="cpu")
-    for kw in (dict(dump_dir="frames"), dict(adaptive_resort=True)):
-        with pytest.raises(NotImplementedError):
-            Simulator(box, params, device="cpu", **kw)
-    sim = Simulator(box, params, device="cpu")
-    with pytest.raises(NotImplementedError):
-        sim.save("ckpt.npz")
+    for kw in (dict(dump_dir=str(tmp_path / "frames")),
+               dict(adaptive_resort=True)):
+        sim = Simulator(box, params, device="cpu", **kw)
+        sim.step(1)
+        sim.flush()
+        assert sim.step_count == 1
+    assert (tmp_path / "frames" / "position_buffer.txt").exists()
+    sim.save(str(tmp_path / "ckpt.npz"))
+    sim.restore(str(tmp_path / "ckpt.npz"))
+    assert sim.step_count == 1
 
 
 @pytest.mark.parametrize("walls,n,elastic_only", [
