@@ -72,12 +72,10 @@ def jax_runs(tmp_path_factory):
     """One sph_tpu fastw Simulator (adaptive, period 4, dumps every 4
     steps, sync writes) driven through: three chunks at threshold 10 (its
     step-4 checkpoint saved, its trajectory read at step 8); from step 0
-    again at threshold 1e-3, one chunk (a second would be a 2-step period,
-    one more compile); 4 steps from the port's step-4 checkpoint. And the
-    fast engine's ladder the same way, two chunks at 1e-3 (a third would
-    be a 1-step period, which never moves the ladder). The packages part
-    by ~1.5e-5 a period on this box, so what is held to ATOL spans at most
-    8 steps from a common state."""
+    again three chunks at threshold 1e-3; 4 steps from the port's step-4
+    checkpoint. And the fast engine's ladder the same way. The packages
+    part by ~1.5e-5 a period on this box, so what is held to ATOL spans at
+    most 8 steps from a common state."""
     d = tmp_path_factory.mktemp("runtime")
     jp, js, params, scene = kicked_box()
     out = dict(dir=d, params=params, scene=scene)
@@ -98,7 +96,7 @@ def jax_runs(tmp_path_factory):
     out["fastw_10"] += chunks(jsim, 1, jp.h)
     jsim.restore(ck0)
     jsim._drift_threshold_h = 1e-3
-    out["fastw_1e-3"] = chunks(jsim, 1, jp.h)
+    out["fastw_1e-3"] = chunks(jsim, 3, jp.h)
 
     # the port: 8 steps with dumps, its step-4 checkpoint for sph_tpu
     psim = Simulator(scene, params, device="cpu",
@@ -126,7 +124,7 @@ def jax_runs(tmp_path_factory):
     out["fast_10"] = chunks(fsim, 3, jp.h)
     fsim.restore(ck0)
     fsim._drift_threshold_h = 1e-3
-    out["fast_1e-3"] = chunks(fsim, 2, jp.h)
+    out["fast_1e-3"] = chunks(fsim, 3, jp.h)
     return out
 
 
@@ -197,25 +195,23 @@ def test_checkpoints_cross_load_and_step_alike(jax_runs):
 @pytest.mark.parametrize("engine", ["fastw", "fast"])
 def test_adaptive_ladder_matches_sph_tpu(jax_runs, engine):
     """sph_tpu's test_adaptive_resort_moves_down_the_ladder on both
-    engines: at threshold 10 the period stays at 4 for three chunks, at
-    1e-3 it steps down (fast: 4 -> 2 -> 1; fastw: 4 -> 2); the port makes
-    the same choices and each chunk's drift bound agrees within 1e-4
-    relative."""
+    engines: over three chunks the period stays at 4 at threshold 10 and
+    steps down 4 -> 2 -> 1 at 1e-3; the port makes the same choices and
+    each chunk's drift bound agrees within 1e-4 relative."""
     r = jax_runs
-    down = {"fast": [2, 1], "fastw": [2]}[engine]
-    for thr, k in ((10.0, 3), (1e-3, len(down))):
+    for thr in (10.0, 1e-3):
         sim = Simulator(r["scene"], r["params"], engine=engine, device="cpu",
                         adaptive_resort=True, drift_threshold_h=thr,
                         fast_config=dict(resort_every=RESORT))
         assert sim._chunk_levels == [4, 2, 1]
-        got = chunks(sim, k, r["params"].h)
+        got = chunks(sim, 3, r["params"].h)
         want = r[f"{engine}_{'10' if thr == 10.0 else '1e-3'}"]
         assert [c for c, _ in got] == [c for c, _ in want]
         np.testing.assert_allclose([d for _, d in got],
                                    [d for _, d in want], rtol=1e-4)
         assert sim.step_count == sum(c for c, _ in [(RESORT, 0)] + got[:-1])
     assert [c for c, _ in r[f"{engine}_10"]] == [4, 4, 4]
-    assert [c for c, _ in r[f"{engine}_1e-3"]] == down
+    assert [c for c, _ in r[f"{engine}_1e-3"]] == [2, 1, 1]
 
 
 def test_dumped_frames_match_sph_tpu(jax_runs):
@@ -361,8 +357,10 @@ def test_restore_keeps_or_rebuilds_the_runners(tmp_path):
 def test_in_graph_wall_path(monkeypatch):
     """``wall_static=None`` sorts the walls in the resort and sums their
     mutual density with ``raw_sw``: 4 steps (two periods) within ATOL of
-    sph_tpu's in-graph path and within 1e-5 of the port's hoisted path;
-    ``tile_overflow`` counts the shell x wall tables too."""
+    sph_tpu's in-graph path and within 1e-5 of the port's hoisted path, the
+    stepper bitwise the multi-step runner; the ``raw_sw`` inputs meet the
+    ring kernel's precondition; ``tile_overflow`` counts the shell x wall
+    tables too."""
     jp, js, params, scene = kicked_box()
     jl = js.layout()
     jcfg = JW.compute_fastw_config(js.pos, jp, jl, ptype=js.ptype,
@@ -394,8 +392,20 @@ def test_in_graph_wall_path(monkeypatch):
                                                 wall_static=ws).passes
     calls = W.record_step_inputs(parts, *scene.device_state("cpu"))
     p, tables, own, slab = calls["raw_sw"]
-    assert (p.n_blocks, p.ccol, slab.shape[1] % 4) == (
-        cfg.n_blocks_s, cfg.ccol_compact, 0)
+    assert (p.n_blocks, p.ccol) == (cfg.n_blocks_s, cfg.ccol_compact)
+    # the ring kernel's precondition on this new table shape: a 16-byte
+    # aligned slab whose width, ccol and tile offsets are multiples of 4,
+    # rows a CTA dividing the block (checked on CPU tables)
+    pk._check(p, tables, own, slab)
+    assert slab.shape[1] % 4 == 0 and bool((tables[0] % 4 == 0).all())
+    # the stateful stepper takes the in-graph path too
+    sort, inner, unsort = W.make_fastw_stepper(params, layout, cfg,
+                                               inner_steps=2)
+    state, springs, membranes = scene.device_state("cpu")
+    for _ in range(2):
+        ctx, carry, _ = sort(state, springs, membranes)
+        state = unsort(ctx, inner(ctx, carry), state)
+    assert torch.equal(state.pos, out.pos)
     # every table set's overflow counts: with each set made to overflow by
     # one tile, the in-graph path counts four (moving, moving x shell,
     # shell x moving, shell x wall), the hoisted path three
