@@ -192,13 +192,41 @@ them to the kernels the card ran, as the profiler records them):
    ms/step against the fixed period in turns A F F A, and a profile of each
    (graph launches, busy, idle); (e) ``python -m sph_tpu_torch run``
    with a dump and a checkpoint, ``run --restore`` (it must print step 90)
-   and ``info`` in subprocesses. It prints its seconds.
+   and ``info`` in subprocesses. It prints its seconds;
+22. the at-scale legs: ``sph_tpu_torch.scripts.bench_scale.measure`` on the
+   2-worm scene (``generate_multi_worm_scene(2)`` in
+   ``generate_multi_worm_params(2)``'s widened pool, 437,826 particles)
+   and on the dam-break (fill 0.8), each on fastw (block 256, ccol 512,
+   ccol_c 256, walls hoisted) and on fast (``compute_fast_config``'s
+   defaults): one untimed chunk of 30 steps (the graph's capture), then 4
+   timed chunks; ms/step, particle-steps/s, the first chunk's seconds,
+   each capture's seconds and pool bytes, launches a step; checks finite
+   state, walls bitwise still, liquid inside the box, no shell overflow
+   (dropped moving-wall pairs; the tile overflow, the tiles sph_tpu's
+   Pallas caps would drop where the port's kernels have no caps, is
+   printed), the timed chunks' window drift within the shell's capture
+   bound (the first chunk's printed beside it, and whether it outruns the
+   shell), the engine that ran is the one asked for, and each path's
+   launches a step; one more chunk of each under torch.profiler: device
+   busy ms a step, idle share and the top kernels;
+23. the locomotion acceptance run: ``sph_tpu_torch.scripts.locomotion``'s
+   ``main`` in this process on the full worm, ``--steps 20000
+   --assert-propels --frames ""`` (20,160 steps: the reference loop's 42
+   reports of 16 chunks of 30), on fastw (the main path) and on fast (the
+   reference's engine); each must pass the reference's gate (PROPELS:
+   |dz| > 3 noise and > 0.05; final max strain < 0.5), move the worm's
+   centre of mass the way sph_tpu's did (dz > 0) and count no shell
+   overflow; prints dz, noise, strains and bounding boxes beside
+   sph_tpu's record (+1.7496, 0.0468, 0.215), the loop's ms/step, the
+   first chunk's window drift (fastw: whether it outruns the shell), and
+   the idle share: 1 - the device busy ms a step (torch.profiler over 2
+   more chunks of the same runner) / the loop's ms a step.
 
 Each phase prints its seconds. ``--only`` runs the named phases alone
 (small: 3-4, box: 5-6, rworm: 7, rworm_engine: 8, worm: 9-10, small_fast:
 11-12, tiny_worm: 13, dam: 14, fast_worm: 15, exact: 16, bench: 17, pack:
-18, ab: 19, graph: 20, runtime: 21) while iterating; the run then prints
-no result lines and exits 2.
+18, ab: 19, graph: 20, runtime: 21, scale: 22, locomotion: 23) while
+iterating; the run then prints no result lines and exits 2.
 
 Ends with a JSON line of per-kernel results (each kernel's numbers from the
 path that runs it at its main shapes, with its launches a step on every
@@ -238,7 +266,10 @@ from sph_tpu_torch.ops import pair_kernels as pk
 from sph_tpu_torch.runtime import Simulator
 from sph_tpu_torch.runtime import checkpoint as CK
 from sph_tpu_torch.scene import (generate_liquid_box_scene,
+                                 generate_multi_worm_params,
+                                 generate_multi_worm_scene,
                                  generate_worm_scene)
+from sph_tpu_torch.scripts import bench_scale, locomotion
 
 H = 3.34
 BOX_STEPS = 120
@@ -360,6 +391,15 @@ CLI_TIMEOUT_S = 300
 CLI_SCENE = ["--scene", "worm"]
 CLI_RUN = []                   # more flags of the run commands
 CLI_STEPS, CLI_MORE = 60, 30   # a frame and a period every 30 steps
+# ---- the at-scale legs and the locomotion run (phases 22-23) ----
+N_WORMS = 2
+WORM2_PARTICLES = 437826       # the NumPy path's 2-worm scene
+SCALE_ROUNDS = 4               # timed chunks of 30 steps a leg
+LOCO_STEPS, LOCO_CHUNK, LOCO_REPORT = 20000, 30, 500   # the reference's
+# sph_tpu's locomotion record on the fast engine (BASELINE.md:106-109):
+# 20,000 steps of the full worm (its native builder's 231,811 particles)
+REF_LOCO = dict(dz=1.7496, noise=0.0468, strain=0.215)
+LOCO_PROFILE_CHUNKS = 2        # profiled chunks for the device busy time
 # sph_tpu's checkpoint keys (``runtime.checkpoint.KEYS``; a CPU test holds
 # the list to sph_tpu's archive)
 CKPT_KEYS = CK.KEYS
@@ -2636,6 +2676,163 @@ def runtime_phase(card, profile_steps):
     return dict(kernels=kernels, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# the at-scale legs and the locomotion run (phases 22-23)
+# ---------------------------------------------------------------------------
+
+def scale_phase(card, profile_steps):
+    # 22. ``scripts.bench_scale.measure`` on the 2-worm scene and the
+    # dam-break, each on fastw and on fast
+    base = SimParams()
+    t0 = time.perf_counter()
+    worm2 = generate_multi_worm_scene(N_WORMS, base)
+    wide = generate_multi_worm_params(N_WORMS, base)
+    t_worm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dam = generate_liquid_box_scene(base, fill_fraction=0.8)
+    print(f"scale: {N_WORMS}-worm scene {worm2.counts}, n "
+          f"{worm2.n_particles}, generated in {t_worm:.1f} s; dam-break "
+          f"{dam.counts}, n {dam.n_particles}, generated in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(worm2.n_particles == WORM2_PARTICLES,
+          f"2-worm scene: {worm2.n_particles} particles")
+    check(worm2.layout().springs_elastic_only,
+          "the 2-worm scene anchors springs to the walls")
+    launches = {}
+    for label, scene, params, engine, per_step in (
+            ("worm2_fastw", worm2, wide, "fastw", PER_STEP),
+            ("worm2_fast", worm2, wide, "fast", PER_STEP_FAST_WORM),
+            ("dam_fastw", dam, base, "fastw", PER_STEP_BOX),
+            ("dam_fast", dam, base, "fast", PER_STEP_DAM)):
+        t0 = time.perf_counter()
+        r = bench_scale.measure(label, scene, params, engine=engine,
+                                rounds=SCALE_ROUNDS)
+        total = time.perf_counter() - t0
+        caps = "; ".join(
+            f"{c['r_steps']}-step graph: capture + instantiate "
+            f"{c['capture_s']:.3f} s, pool {c['pool_bytes']} B "
+            f"({c['pool_bytes'] / 2**20:.1f} MiB)" for c in r["captures"])
+        bound = r["shell_bound_h"]
+        outruns = bound is not None and r["warm_drift_h"] >= bound
+        print(f"  {label}: engine {r['engine']}, {r['particles']} particles, "
+              f"{r['steps']} timed steps: {r['ms_step']:.4f} ms/step, "
+              f"{r['pps']:.6g} particle-steps/s; first chunk "
+              f"{r['compile_s']:.3f} s ({caps}); set-up and run "
+              f"{total:.1f} s; window drift {r['warm_drift_h']:.4f} h "
+              f"(first chunk, outruns the shell: {outruns}), "
+              f"{r['drift_h']:.4f} h (timed; shell bound {bound} h); shell "
+              f"overflow {r['shell_overflow']}, tile overflow "
+              f"{r['tile_overflow']} (tiles sph_tpu's Pallas caps would "
+              f"drop; the port's kernels have none); launches a step "
+              f"{r['launches']} [{card}]", flush=True)
+        check(r["engine"] == engine, f"{label}: ran {r['engine']}")
+        check(r["finite"], f"{label}: non-finite state")
+        check(r["walls_still"], f"{label}: walls moved")
+        check(r["in_box"], f"{label}: liquid left the box")
+        check(r["shell_overflow"] == 0,
+              f"{label}: shell overflow {r['shell_overflow']}: moving-wall "
+              "pairs dropped")
+        check(bound is None or r["drift_h"] < bound,
+              f"{label}: window drift {r['drift_h']} h past the shell's "
+              f"capture bound {bound} h")
+        busy, wall, top = runner_profile(r["run"], r["state"], r["springs"],
+                                         r["membranes"], 1, top=6)
+        print(f"  {label}: profiled chunk: wall {wall:.4f} ms/step "
+              f"(profiler on), device busy "
+              + ("not measured" if busy is None else
+                 f"{busy:.4f} ms/step, idle share {1.0 - busy / wall:.4f}")
+              + f" [{card}]", flush=True)
+        for name, us, n in top:
+            print(f"    {us:10.1f} us/step {n:6.1f} launches/step  "
+                  f"{name[:90]}", flush=True)
+        for key in set(per_step) | set(r["launches"]):
+            check(r["launches"].get(key, 0) == per_step.get(key, 0),
+                  f"{label} {key}: {r['launches'].get(key, 0)} launches a "
+                  f"step, expected {per_step.get(key, 0)}")
+        if label != "dam_fast":          # dambreak_fast holds its counts
+            launches[label] = r["launches"]
+        del r           # the runner's graph and state, before the next
+    return dict(kernels={}, launches=launches)
+
+
+def runner_profile(run, state, springs, membranes, chunks, top=0):
+    """``chunks`` back-to-back runner calls under torch.profiler: (device
+    busy ms a step (the kernels' device time summed; None where the
+    profiler recorded no kernel), wall ms a step with the profiler on, the
+    ``top`` kernels by device time as (name, us a step, launches a
+    step))."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    step0 = int(state.step)
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(chunks):
+            state, _ = run(state, springs, membranes)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = int(state.step) - step0
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    return (dev_us / 1e3 / steps if dev_us else None, wall_ms / steps,
+            [(e.key, e.self_device_time_total / steps, e.count / steps)
+             for e in ranked])
+
+
+def locomotion_phase(card, profile_steps):
+    # 23. ``scripts.locomotion`` on the full worm, 20,000 steps with the
+    # acceptance gate, on fastw (the main path) and on fast (sph_tpu's
+    # engine for this run)
+    argv = ["--steps", str(LOCO_STEPS), "--chunk", str(LOCO_CHUNK),
+            "--report-every", str(LOCO_REPORT), "--assert-propels",
+            "--frames", ""]
+    ref = REF_LOCO
+    for engine in ("fastw", "fast"):
+        out = {}
+        t0 = time.perf_counter()
+        rc = locomotion.main(argv + ["--engine", engine], out)
+        total = time.perf_counter() - t0
+        busy_step = runner_profile(out["run"], out["state"], out["springs"],
+                                   out["membranes"], LOCO_PROFILE_CHUNKS)[0]
+        idle = ("not measured" if busy_step is None
+                else f"{1.0 - busy_step / out['ms_step']:.4f}")
+        busy_txt = ("not measured" if busy_step is None
+                    else f"{busy_step:.4f}")
+        print(f"locomotion [{engine}]: {out['steps']} steps of "
+              f"{out['particles']} particles in {total:.1f} s: dz "
+              f"{out['dz']:+.4f} (sph_tpu {ref['dz']:+.4f}), noise "
+              f"{out['noise']:.4f} ({ref['noise']:.4f}), final max strain "
+              f"{out['strain']:.4f} ({ref['strain']:.3f}), start "
+              f"{out['strain0']:.4f}; {out['verdict']}; elastic bounding box "
+              f"{np.round(out['bb0'], 4).tolist()} -> "
+              f"{np.round(out['bb1'], 4).tolist()}; {out['ms_step']:.4f} "
+              f"ms/step over the loop (reports and the first capture "
+              f"included), device busy {busy_txt} ms/step over "
+              f"{LOCO_PROFILE_CHUNKS} profiled chunks, idle share {idle}; "
+              f"window drift {out['first_drift_h']:.4f} h in the first "
+              f"chunk, {out['drift_h']:.4f} h after it (shell bound "
+              f"{out['shell_bound_h']} h), overflow {out['overflow']} "
+              f"[{card}]", flush=True)
+        bound = out["shell_bound_h"]
+        if bound is not None:
+            print(f"  locomotion [{engine}]: the first period outruns the "
+                  f"shell: {out['first_drift_h'] >= bound}", flush=True)
+        check(out["engine"] == engine, f"locomotion: ran {out['engine']}")
+        check(rc == 0 and out["passed"],
+              f"locomotion [{engine}]: the acceptance gate failed "
+              f"({out['verdict']}, strain {out['strain']})")
+        check(np.sign(out["dz"]) == np.sign(ref["dz"]),
+              f"locomotion [{engine}]: dz {out['dz']} against sph_tpu's "
+              f"{ref['dz']}")
+        check(out["overflow"].get("shell_overflow", 0) == 0,
+              f"locomotion [{engine}]: overflow {out['overflow']}")
+        del out         # the runner's graph and state, before the next
+    return None
+
+
 # name -> phase(card, profile_steps), in running order; a phase that runs a
 # kernel's main path returns its ``kernels`` entries and launches a step
 PHASES = {"small": small_box_phases, "box": box_phases,
@@ -2644,7 +2841,8 @@ PHASES = {"small": small_box_phases, "box": box_phases,
           "tiny_worm": tiny_worm_phases, "dam": dam_break_phases,
           "fast_worm": fast_worm_phases, "exact": exact_phases,
           "bench": bench_phase, "pack": pack_phase, "ab": ab_phase,
-          "graph": graph_phase, "runtime": runtime_phase}
+          "graph": graph_phase, "runtime": runtime_phase,
+          "scale": scale_phase, "locomotion": locomotion_phase}
 
 
 if __name__ == "__main__":

@@ -13,8 +13,8 @@ from .constants import (
     MAX_NEIGHBORS,
     MUSCLE_COUNT,
 )
-from .core.state import FluidState, Membranes, Springs
-from .core.step import SceneLayout
+from .core.state import FluidState, Membranes, Springs, make_state
+from .core.step import SceneLayout, multi_step, simulation_step
 
 __version__ = "0.1.0"
 
@@ -25,6 +25,9 @@ __all__ = [
     "Springs",
     "Membranes",
     "SceneLayout",
+    "make_state",
+    "simulation_step",
+    "multi_step",
     "LIQUID_PARTICLE",
     "ELASTIC_PARTICLE",
     "BOUNDARY_PARTICLE",

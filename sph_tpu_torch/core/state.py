@@ -8,9 +8,11 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-from ..constants import MAX_MEMBRANES_PER_PARTICLE, MAX_NEIGHBORS
+from ..constants import (BOUNDARY_PARTICLE, MAX_MEMBRANES_PER_PARTICLE,
+                         MAX_NEIGHBORS, MUSCLE_COUNT)
 
 
 @dataclasses.dataclass
@@ -73,4 +75,33 @@ def empty_membranes(n_particles: int, device) -> Membranes:
             (n_particles, MAX_MEMBRANES_PER_PARTICLE), -1,
             dtype=torch.int32, device=device,
         ),
+    )
+
+
+def make_state(pos, vel, ptype, normal=None, device="cuda") -> FluidState:
+    """Build a FluidState from host arrays on ``device``, at step 0 with no
+    muscle activation.
+
+    ``vel`` rows for boundary particles are interpreted as wall normals (the
+    reference's storage trick, `sphFluid.cl:860`) **only** if ``normal`` is
+    not given; pass ``normal`` explicitly for new-style scenes.
+    """
+    pos = np.asarray(pos, dtype=np.float32)
+    vel = np.asarray(vel, dtype=np.float32)
+    ptype = np.asarray(ptype, dtype=np.int32)
+    if normal is None:
+        is_b = (ptype == BOUNDARY_PARTICLE)[:, None]
+        normal = np.where(is_b, vel, 0.0).astype(np.float32)
+        vel = np.where(is_b, 0.0, vel).astype(np.float32)
+    else:
+        normal = np.asarray(normal, dtype=np.float32)
+
+    def t(a):       # a copy, as jnp.asarray makes: the state owns its data
+        return torch.tensor(a, device=device)
+
+    return FluidState(
+        pos=t(pos), vel=t(vel), ptype=t(ptype), normal=t(normal),
+        muscle_activation=torch.zeros(MUSCLE_COUNT, dtype=torch.float32,
+                                      device=device),
+        step=torch.zeros((), dtype=torch.int32, device=device),
     )

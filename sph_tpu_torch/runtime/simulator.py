@@ -189,26 +189,29 @@ class Simulator:
         """run(state, springs, membranes) -> (state, diag) over n steps;
         diag holds device tensors (fast: the window drift only)."""
         if n not in self._fast_runs:
-            if self.engine == "fast":
-                from ..core.fast import make_fast_multi_step
-
-                fast_run = make_fast_multi_step(
-                    self.params, self.layout, self._fast_cfg, n,
-                    return_drift=True, cuda_graph=self._cuda_graph)
-
-                def run(state, springs, membranes, _f=fast_run):
-                    out, drift = _f(state, springs, membranes)
-                    return out, dict(window_drift=drift)
-            else:
-                from ..core.fastw import make_fastw_multi_step
-
-                run = make_fastw_multi_step(
-                    self.params, self.layout, self._fast_cfg, n,
-                    return_diag=True, wall_static=self._wall_static,
-                    cuda_graph=self._cuda_graph,
-                )
-            self._fast_runs[n] = run
+            self._fast_runs[n] = self._make_run(n, self.layout)
         return self._fast_runs[n]
+
+    def _make_run(self, n: int, layout):
+        """A new period runner of ``n`` steps for ``layout``; assigns
+        nothing, so a layout the engine refuses raises with the Simulator
+        unchanged."""
+        if self.engine == "fast":
+            from ..core.fast import make_fast_multi_step
+
+            fast_run = make_fast_multi_step(
+                self.params, layout, self._fast_cfg, n,
+                return_drift=True, cuda_graph=self._cuda_graph)
+
+            def run(state, springs, membranes):
+                out, drift = fast_run(state, springs, membranes)
+                return out, dict(window_drift=drift)
+            return run
+        from ..core.fastw import make_fastw_multi_step
+
+        return make_fastw_multi_step(
+            self.params, layout, self._fast_cfg, n, return_diag=True,
+            wall_static=self._wall_static, cuda_graph=self._cuda_graph)
 
     def _run(self, n: int):
         if self.engine == "exact":
@@ -443,18 +446,22 @@ class Simulator:
         constants would be stale);
         (b) otherwise, where its springs or membranes differ, they replace
         this Simulator's and the period runners are built anew (the next
-        step captures new graphs);
+        step captures new graphs); springs the engine refuses (fastw:
+        anchored to walls) raise, and the Simulator keeps its state,
+        springs, membranes, layout and runners;
         (c) otherwise the Simulator keeps its own reference tensors and
         takes only ``pos``, ``vel``, ``muscle_activation`` and ``step``, so
         its period graphs replay on."""
         state, springs, membranes, color = load_checkpoint(path, "cpu")
         self._check_restorable(state)
+        # everything that can fail is built before anything is assigned: a
+        # refused checkpoint leaves the Simulator stepping its old state
+        fields = {f: getattr(state, f).to(self.device)
+                  for f in ("pos", "vel", "muscle_activation", "step")}
         if not (_same(springs, self.springs)
                 and _same(membranes, self.membranes)):
             self._replace_elastic(springs, membranes)
-        self.state = dataclasses.replace(self.state, **{
-            f: getattr(state, f).to(self.device)
-            for f in ("pos", "vel", "muscle_activation", "step")})
+        self.state = dataclasses.replace(self.state, **fields)
         if color is not None:
             self.scene.color = color
 
@@ -482,8 +489,10 @@ class Simulator:
 
     def _replace_elastic(self, springs, membranes) -> None:
         """New springs or membranes: the layout's spring facts anew, the
-        period runners dropped and the current one built (a scene the
-        engine cannot step fails here)."""
+        period runners dropped and the current one built. The layout, the
+        moved tensors and the runner are built first and swapped in only
+        when all exist: a scene the engine cannot step (fastw: springs
+        anchored to walls) raises with the Simulator unchanged."""
         sc = self.scene
         layout = dataclasses.replace(
             sc, spring_rows=springs.row_ids.numpy(),
@@ -491,16 +500,16 @@ class Simulator:
             spring_rest=springs.rest.numpy(),
             spring_type=springs.muscle.numpy().astype(np.float32),
             tris=membranes.tris.numpy()).layout()
-        self.springs = dataclasses.replace(springs, **{
-            f.name: getattr(springs, f.name).to(self.device)
-            for f in dataclasses.fields(springs)})
-        self.membranes = dataclasses.replace(membranes, **{
-            f.name: getattr(membranes, f.name).to(self.device)
-            for f in dataclasses.fields(membranes)})
-        self.layout = layout
+        springs, membranes = (
+            dataclasses.replace(obj, **{
+                f.name: getattr(obj, f.name).to(self.device)
+                for f in dataclasses.fields(obj)})
+            for obj in (springs, membranes))
+        runs = ({} if self.engine == "exact" else
+                {self._fast_chunk: self._make_run(self._fast_chunk, layout)})
+        self.springs, self.membranes, self.layout = springs, membranes, layout
         if self.engine != "exact":
-            self._fast_runs = {}
-            self._fast_run_for(self._fast_chunk)
+            self._fast_runs = runs
 
 
 def _same(a, b) -> bool:

@@ -1,5 +1,6 @@
 """Procedural scene generators (counterpart of ``sph_tpu/scene/worm.py``):
-the C. elegans worm in its pool, and the pure-liquid box.
+the C. elegans worm in its pool, n worms side by side in one widened pool,
+and the pure-liquid box.
 
 NumPy only, the loops of the original with its float32 rounding kept where
 it decides particle counts (slice radii, angle stepping, grid-extent
@@ -8,10 +9,11 @@ divisions), so the generated scenes are bitwise equal to those of
 data tables ``_DORSAL_WINDOWS`` / ``_VENTRAL_WINDOWS`` (one row per y-band x
 z-window) consumed by one vectorized matcher: later windows override earlier
 ones, unmatched gated springs keep the 1.1 code (-> muscle id 1), as
-upstream. The multi-worm generator is ROADMAP Queue 1.
+upstream.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -528,4 +530,79 @@ def generate_liquid_box_scene(
     return Scene(
         pos=pos, vel=np.zeros((n, 3), np.float32),
         color=color, normal=normal,
+    )
+
+
+def generate_multi_worm_scene(
+    n_worms: int = 2,
+    params: SimParams = None,
+) -> Scene:
+    """``n_worms`` worms side by side along x, sharing one widened pool.
+
+    Stress configuration beyond the reference (which hard-codes one worm,
+    owHelper.cpp:709): the single-worm lane (the reference's 30h-wide box,
+    owPhysicsConstant.h) is tiled n times along x, so worms sit a full
+    lane (~30h) apart — far beyond the spring-search cutoff r0*sqrt(2.7)
+    (owHelper.cpp:1392), so the combined spring graph cannot connect
+    worms. The scene is built against the widened world box — pass
+    ``generate_multi_worm_params(n_worms, params)`` as the Simulator's
+    params. Memory order stays elastic (all worms) | liquid (inner
+    liquids, then pool) | boundary. All worms share the single 96-muscle
+    activation atlas, so they undulate in phase.
+    """
+    if params is None:
+        params = SimParams()
+    wide = generate_multi_worm_params(n_worms, params)
+
+    shell_pos, shell_color, tris = _worm_shell(params)
+    inner = _inner_worm_liquid(params)
+    lane = float(params.x_max - params.x_min)
+
+    shells, colors, triss, inners = [], [], [], []
+    n_e1 = len(shell_pos)
+    for k in range(n_worms):
+        dx = np.array([k * lane, 0.0, 0.0], np.float32)
+        shells.append(shell_pos + dx)
+        colors.append(shell_color)
+        triss.append(np.asarray(tris, np.int32).reshape(-1, 3) + k * n_e1)
+        inners.append(inner + dx)
+
+    pool = _pool_liquid(wide)
+    bpos, bnorm = _boundary_box(wide)
+
+    n_e = n_worms * n_e1
+    n_l = n_worms * len(inner) + len(pool)
+    n_b = len(bpos)
+    n = n_e + n_l + n_b
+
+    pos = np.concatenate(shells + inners + [pool, bpos])
+    color = np.concatenate(
+        colors
+        + [np.full(n_l, 1.1, np.float32), np.full(n_b, 3.0, np.float32)]
+    )
+    normal = np.zeros((n, 3), np.float32)
+    normal[n_e + n_l:] = bnorm
+
+    sidx, srest, stype = _spring_graph(pos, color, n_e, n_l, wide)
+
+    return Scene(
+        pos=pos, vel=np.zeros((n, 3), np.float32), color=color,
+        normal=normal,
+        spring_rows=np.arange(n_e, dtype=np.int32),
+        spring_idx=sidx, spring_rest=srest, spring_type=stype,
+        tris=np.concatenate(triss, axis=0),
+        muscle_model=True,
+    )
+
+
+def generate_multi_worm_params(
+    n_worms: int, params: SimParams = None
+) -> SimParams:
+    """The widened world box for generate_multi_worm_scene: one reference
+    lane (x extent) per worm."""
+    if params is None:
+        params = SimParams()
+    lane = float(params.x_max - params.x_min)
+    return dataclasses.replace(
+        params, x_max=float(params.x_min) + lane * n_worms
     )

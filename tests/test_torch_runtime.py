@@ -354,6 +354,54 @@ def test_restore_keeps_or_rebuilds_the_runners(tmp_path):
                                   scene_b.spring_rest)
 
 
+def test_refused_restore_leaves_the_simulator_as_it_was(tmp_path):
+    """A checkpoint whose springs anchor to a wall, which fastw refuses:
+    ``restore`` raises, the Simulator's state, springs, membranes, layout
+    and runners are the same objects as before, and two more steps equal
+    bitwise those of a Simulator that never tried the restore. The scene:
+    the kicked 8h box (walls), its first 8 rows an elastic chain."""
+    _, _, params, scene = kicked_box()
+    ne = 8
+    scene.color[:ne] = 2.2
+    idx = np.full((ne, scene.spring_idx.shape[1]), -1, np.int32)
+    rest = np.zeros(idx.shape, np.float32)
+    for a in range(ne - 1):
+        idx[a, 0], idx[a + 1, 1] = a + 1, a
+        rest[a, 0] = rest[a + 1, 1] = np.linalg.norm(
+            scene.pos[a] - scene.pos[a + 1]) * params.simulation_scale
+    scene = dataclasses.replace(
+        scene, spring_rows=np.arange(ne, dtype=np.int32), spring_idx=idx,
+        spring_rest=rest, spring_type=np.zeros(idx.shape, np.float32))
+    kw = dict(device="cpu", engine="fastw", fast_config=dict(resort_every=2))
+    sim, ref = Simulator(scene, params, **kw), Simulator(scene, params, **kw)
+    assert sim.layout.springs_elastic_only
+    sim.step(2)
+    ref.step(2)
+    sim.save(str(tmp_path / "s.npz"))
+    b0 = sim.layout.boundary_range[0]
+
+    def to_wall(a):
+        a[0, 2] = b0
+        return a
+
+    bad = _edited(str(tmp_path / "s.npz"), str(tmp_path / "wall.npz"),
+                  spring_idx=to_wall)
+    before = (sim.state, sim.springs, sim.membranes, sim.layout,
+              sim._fast_runs)
+    runners = dict(sim._fast_runs)
+    with pytest.raises(ValueError, match="elastic-only spring anchors"):
+        sim.restore(bad)
+    after = (sim.state, sim.springs, sim.membranes, sim.layout,
+             sim._fast_runs)
+    assert all(a is b for a, b in zip(after, before))
+    assert sim._fast_runs == runners
+    sim.step(2)
+    ref.step(2)
+    assert sim.step_count == 4
+    for a, b in zip(state_of(sim), state_of(ref)):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_in_graph_wall_path(monkeypatch):
     """``wall_static=None`` sorts the walls in the resort and sums their
     mutual density with ``raw_sw``: 4 steps (two periods) within ATOL of
