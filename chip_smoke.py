@@ -220,13 +220,36 @@ them to the kernels the card ran, as the profiler records them):
    sph_tpu's record (+1.7496, 0.0468, 0.215), the loop's ms/step, the
    first chunk's window drift (fastw: whether it outruns the shell), and
    the idle share: 1 - the device busy ms a step (torch.profiler over 2
-   more chunks of the same runner) / the loop's ms a step.
+   more chunks of the same runner) / the loop's ms a step;
+24. the multi-GPU halo engine (``sph_tpu_torch/parallel``) on 2 gloo ranks
+   that share the card (``parallel.launch.run_ranks``; the kernels are
+   built before the ranks start): (a) ``dryrun_multichip(2, device=
+   "cuda")``'s three checks (one all-gather step against the exact engine
+   within 2e-5; 3 halo steps and 5 distributed-resort steps of the
+   14h x 12h x 108h worm against the fast engine within 5e-5, no
+   overflow); (b) the full worm padded to 2 x block, resort_every 5, two
+   periods of each resort against the fast engine on the card: every
+   overflow 0, positions within 1e-4 beyond 3 h of the generated worm's
+   near-coincident pairs and within 1e-2 everywhere (the reduced worm's
+   rule), the pair-kernel launches summed over the ranks equal to 2 ranks
+   x the fast worm's launches a step, and ms/step of each resort (a rank's
+   second run, gloo staging every exchange through host memory; the host
+   time inside the collectives by rank) beside the fast engine's eager and
+   graphed ms/step and the halo engine's in a world of one on the card;
+   (c) each pair kernel once on one rank's recorded slab inputs (one step
+   from the replicated run's end state: the liquid passes kicked, see
+   ``kicked``, on the rank with the most liquid rows; spring and membrane
+   as they are, on the rank with the most elastic rows) against its plain
+   version as phase 3 holds a kernel; (d) the same under nccl where the
+   machine has a card a rank, else it prints ``nccl: not run``. The halo
+   paths' launches a step (summed over the ranks) join the kernels'
+   ``launches_per_step``.
 
 Each phase prints its seconds. ``--only`` runs the named phases alone
 (small: 3-4, box: 5-6, rworm: 7, rworm_engine: 8, worm: 9-10, small_fast:
 11-12, tiny_worm: 13, dam: 14, fast_worm: 15, exact: 16, bench: 17, pack:
-18, ab: 19, graph: 20, runtime: 21, scale: 22, locomotion: 23) while
-iterating; the run then prints no result lines and exits 2.
+18, ab: 19, graph: 20, runtime: 21, scale: 22, locomotion: 23, halo: 24)
+while iterating; the run then prints no result lines and exits 2.
 
 Ends with a JSON line of per-kernel results (each kernel's numbers from the
 path that runs it at its main shapes, with its launches a step on every
@@ -241,6 +264,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -263,6 +287,12 @@ from sph_tpu_torch.core.elastic import elastic_accel
 from sph_tpu_torch.models import muscle
 from sph_tpu_torch.ops import _build
 from sph_tpu_torch.ops import pair_kernels as pk
+from sph_tpu_torch.parallel import (make_halo_fast_multi_step,
+                                    measure_halo_pad, measure_migration_pad,
+                                    pad_scene_to_devices, shard_state)
+from sph_tpu_torch.parallel.comm import Comm
+from sph_tpu_torch.parallel.dryrun import dryrun_multichip
+from sph_tpu_torch.parallel.launch import run_ranks
 from sph_tpu_torch.runtime import Simulator
 from sph_tpu_torch.runtime import checkpoint as CK
 from sph_tpu_torch.scene import (generate_liquid_box_scene,
@@ -2833,6 +2863,263 @@ def locomotion_phase(card, profile_steps):
     return None
 
 
+# ---------------------------------------------------------------------------
+# the multi-GPU halo engine (phase 24)
+# ---------------------------------------------------------------------------
+
+HALO_WORLD = 2           # ranks sharing the card (gloo)
+HALO_DEVICE = "cuda:0"   # the ranks' card and the references'
+HALO_PERIOD = 5          # the full worm's resort period: two periods a run
+HALO_TOL = 1e-4          # positions beyond 3 h of near-coincident pairs
+HALO_NEAR_TOL = 1e-2     # positions near them (the reduced worm's rule)
+HALO_LIQUID = ("density", "rho_star", "viscsurf", "paccel", "boundary")
+HALO_ELASTIC = ("spring", "membrane")
+
+
+def halo_worm(world):
+    """(params, the full worm padded to ``world * block``, its fast config
+    at resort_every ``HALO_PERIOD``, the Simulator's measured halo_pad and
+    mig_cap clamped to the rows of one rank)."""
+    params = SimParams()
+    scene = generate_worm_scene(params)
+    kw = dict(resort_every=HALO_PERIOD, block_multiple=math.lcm(8, world))
+    block = F.compute_fast_config(scene.pos, params, **kw).block
+    scene = pad_scene_to_devices(scene, world * block)
+    cfg = F.compute_fast_config(scene.pos, params, **kw)
+    per_dev = cfg.n_blocks // world * cfg.block
+    pads = dict(
+        halo_pad=min(measure_halo_pad(scene.pos, params, cfg), per_dev),
+        mig_cap=min(measure_migration_pad(scene.pos, params, cfg), per_dev))
+    return params, scene, cfg, pads
+
+
+def own_rows(scene, params, cfg, pos, rank, world):
+    """The particle ids of ``rank``'s own rows after a replicated resort
+    at ``pos`` (-1 for pad rows), in its slab order."""
+    pencil, cid = F._cells(torch.as_tensor(pos), params, cfg.dims)
+    order = torch.argsort(cid, stable=True).numpy()
+    n_loc = cfg.n_blocks // world * cfg.block
+    ids = np.full(n_loc, -1, np.int64)
+    got = order[rank * n_loc:(rank + 1) * n_loc]
+    ids[:len(got)] = got
+    return ids
+
+
+def record_halo_rank(comm, scene, params, cfg, pads, start, names):
+    """Rank function: (pass, tables, own, slab, rows the engine uses) of
+    the last call of each pair pass in ``names`` in one halo step (the
+    replicated resort) from ``start``, recorded on the rank that owns the
+    most rows the passes act on (liquid rows for the liquid passes,
+    elastic rows for the spring and membrane passes); {} elsewhere."""
+    from sph_tpu_torch.parallel.dryrun import with_start
+
+    state, springs, membranes = scene.device_state(comm.device)
+    state = with_start(state, start)
+    ptype = np.append(scene.ptype, BOUNDARY_PARTICLE)  # pad rows: walls
+    kind = ELASTIC_PARTICLE if "spring" in names else LIQUID_PARTICLE
+    counts = [int((ptype[own_rows(scene, params, cfg, start["pos"], r,
+                                  comm.world)] == kind).sum())
+              for r in range(comm.world)]
+    run = make_halo_fast_multi_step(comm, params, scene.layout(), cfg, 1,
+                                    halo_pad=pads["halo_pad"])
+    calls = {}
+    for name, p in list(run.passes.items()):
+        def rec(tables, own, slab, _name=name, _p=p):
+            calls[_name] = (_p, tables, own, slab)
+            return _p(tables, own, slab)
+        run.passes[name] = rec
+    run(shard_state(state, comm), springs, membranes)
+    if comm.rank != int(np.argmax(counts)):
+        return {}
+    t = ptype[own_rows(scene, params, cfg, start["pos"], comm.rank,
+                       comm.world)]
+    used = {"viscsurf": t != BOUNDARY_PARTICLE,
+            "paccel": t != BOUNDARY_PARTICLE,
+            "boundary": t != BOUNDARY_PARTICLE,
+            "membrane": t == LIQUID_PARTICLE}
+    return {k: (*calls[k], torch.as_tensor(used[k])) if k in used
+            else calls[k] for k in names}
+
+
+def halo_worm_rank(comm, scene, params, cfg, pads, n_steps):
+    """Rank function: the full worm through both resorts twice (the first
+    pair compared and counted, the second timed), then the inputs of one
+    step from the replicated run's end state recorded as it is (spring,
+    membrane) and kicked (the liquid passes; see ``kicked``)."""
+    from sph_tpu_torch.parallel.dryrun import halo_runs
+
+    out = []
+    end = None
+    for full, rec in halo_runs(comm, scene, params, cfg,
+                               [(n_steps, False), (n_steps, True)] * 2,
+                               **pads):
+        if comm.rank == 0:
+            rec.update(pos=full.pos, vel=full.vel, step=full.step)
+        out.append(rec)
+        if end is None:
+            end = full
+    start = {k: getattr(end, k) for k in ("pos", "vel", "muscle_activation",
+                                           "step")}
+    kick = kicked(end, rest_gap=REST_GAP * params.h)
+    kstart = dict(start, pos=kick.pos, vel=kick.vel)
+    recorded = {}
+    for names, s in ((HALO_ELASTIC, start), (HALO_LIQUID, kstart)):
+        recorded.update(record_halo_rank(comm, scene, params, cfg, pads,
+                                         {k: v.cpu() for k, v in s.items()},
+                                         names))
+    return dict(runs=out, recorded=recorded)
+
+
+def halo_compare(ref_pos, pos, near, label):
+    """The reduced worm's rule: HALO_TOL beyond 3 h of near-coincident
+    pairs, HALO_NEAR_TOL everywhere; returns (max, max beyond)."""
+    d = np.abs(pos - ref_pos).max(1)
+    far_max = float(d[~near].max())
+    n_over = int((d > HALO_TOL).sum())
+    print(f"  {label}: max |dpos| {float(d.max()):.3e} ({n_over} rows "
+          f"beyond {HALO_TOL:g}), {far_max:.3e} beyond 3 h of the "
+          f"{int(near.sum())} rows near coincident pairs", flush=True)
+    check(far_max <= HALO_TOL and float(d.max()) <= HALO_NEAR_TOL,
+          f"{label}: max |dpos| {float(d.max())}, {far_max} away from the "
+          "near-coincident pairs")
+    return float(d.max()), far_max
+
+
+def halo_worm_checks(backend, devices, card):
+    """Phase 24 (b) and (c) on ``backend``: returns the launches a step of
+    each resort, summed over the ranks."""
+    params, scene, cfg, pads = halo_worm(HALO_WORLD)
+    print(f"halo worm: {scene.counts}, n {scene.n_particles}, cfg {cfg}, "
+          f"{pads}, {HALO_WORLD} {backend} ranks on {devices}", flush=True)
+    n_steps = 2 * HALO_PERIOD
+    t0 = time.perf_counter()
+    res = run_ranks(halo_worm_rank, HALO_WORLD, backend, devices, scene,
+                    params, cfg, pads, n_steps)
+    print(f"halo worm: ranks done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    dev = torch.device(HALO_DEVICE)
+    state, springs, membranes = scene.device_state(dev)
+    near = worm_near_coincident(scene, params)
+    timings = {}
+    for graph in (False, True):
+        run = F.make_fast_multi_step(params, scene.layout(), cfg, n_steps,
+                                     cuda_graph=graph)
+        ref = run(state, springs, membranes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(state, springs, membranes)
+        torch.cuda.synchronize()
+        timings[graph] = (time.perf_counter() - t0) * 1e3 / n_steps
+    ref_pos = ref.pos.cpu().numpy()
+    per_step = {}
+    for i, label in enumerate(("replicated", "distributed")):
+        run = res[0]["runs"][i]
+        ovf = {k: int(v) for k, v in run["diag"].items()
+               if k.endswith("overflow")}
+        check(not any(ovf.values()), f"halo {label}: overflow {ovf}")
+        check(int(run["step"]) == n_steps, f"halo {label}: step")
+        check(np.isfinite(run["pos"]).all(), f"halo {label}: not finite")
+        halo_compare(ref_pos, run["pos"], near,
+                     f"halo {label} vs fast, {n_steps} steps")
+        total = {}
+        for r in res:
+            for k, v in r["runs"][i]["launches"].items():
+                total[k] = total.get(k, 0) + v
+        for kind, per in PER_STEP_FAST_WORM.items():
+            check(total.get(kind, 0) == per * n_steps * HALO_WORLD,
+                  f"halo {label} {kind}: {total.get(kind, 0)} launches in "
+                  f"{n_steps} steps on {HALO_WORLD} ranks, expected "
+                  f"{per * n_steps * HALO_WORLD}")
+        check(set(total) == set(PER_STEP_FAST_WORM),
+              f"halo {label}: launched {sorted(total)}")
+        per_step[label] = {k: v / n_steps for k, v in total.items()}
+        timed = [r["runs"][i + 2] for r in res]
+        ms = max(t["seconds"] for t in timed) * 1e3 / n_steps
+        first = max(r["runs"][i]["seconds"] for r in res) * 1e3 / n_steps
+        comm_ms = [t["comm_seconds"] * 1e3 / n_steps for t in timed]
+        print(f"halo {label} ({backend}, {HALO_WORLD} ranks sharing the "
+              f"card): {ms:.4f} ms/step over {n_steps} steps (2 periods, a "
+              f"resort each; the rank's second run; its first, compared "
+              f"above: {first:.4f}), of it in the collectives (host clock "
+              f"from the rank's device drain, so the wait for the other "
+              f"rank's share of the card included) "
+              f"{', '.join(f'{c:.4f}' for c in comm_ms)} ms/step by rank, "
+              f"{timed[0]['comm_calls'] / n_steps:.1f} calls a step; "
+              f"launches {total}, window drift "
+              f"{float(run['diag']['window_drift']):.4f} [{card}]",
+              flush=True)
+    # the halo engine in a world of one on the same card: its own eager
+    # cost, no peer and no collective
+    one = make_halo_fast_multi_step(Comm(device=dev), params,
+                                    scene.layout(), cfg, n_steps, **pads)
+    one(state, springs, membranes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one(state, springs, membranes)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    print(f"fast engine, same config, one card: {timings[False]:.4f} "
+          f"ms/step eager, {timings[True]:.4f} ms/step graphed; the halo "
+          f"engine in a world of one (replicated resort): {one_ms:.4f} "
+          f"ms/step; each over {n_steps} steps [{card}]", flush=True)
+
+    calls = {}
+    for r in res:
+        for name, (p, *rest) in r["recorded"].items():
+            calls[name] = (p, *(
+                tuple(torch.as_tensor(t, device=dev) for t in a)
+                if isinstance(a, tuple) else torch.as_tensor(a, device=dev)
+                for a in rest))
+    check(set(calls) == set(HALO_LIQUID + HALO_ELASTIC),
+          f"halo: recorded {sorted(calls)}")
+    elastic_input_counts(params, calls, "halo", names=HALO_ELASTIC)
+    compare(calls, "halo", box_edge(params))
+    return per_step
+
+
+def worm_near_coincident(scene, params):
+    """Rows within 3 h of a liquid row within 0.01 r0 of an elastic row
+    (the generated worm's ill-conditioned rows)."""
+    p0 = scene.pos
+    elastic = scene.ptype == ELASTIC_PARTICLE
+    liquid = np.flatnonzero(scene.ptype == LIQUID_PARTICLE)
+    d = cKDTree(p0[elastic]).query(p0[liquid])[0]
+    near = np.zeros(len(p0), bool)
+    for rows in cKDTree(p0).query_ball_point(
+            p0[liquid[d < 0.01 * params.r0]], 3.0 * params.h):
+        near[rows] = True
+    return near
+
+
+def halo_phase(card, profile_steps):
+    # 24. the multi-GPU halo engine on ranks that share the card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = dryrun_multichip(HALO_WORLD, "gloo", HALO_DEVICE)
+    total = {}
+    for rank in out["launches"]:
+        for run in rank:
+            for k, v in run["launches"].items():
+                total[k] = total.get(k, 0) + v
+    check(total.get("density", 0) > 0 and total.get("paccel", 0) > 0,
+          f"dryrun: the ranks launched {total}")
+    print(f"halo (a): dryrun_multichip({HALO_WORLD}, gloo, cuda) in "
+          f"{time.perf_counter() - t0:.1f} s, the halo runs' launches over "
+          f"the ranks {total}", flush=True)
+    per_step = halo_worm_checks("gloo", HALO_DEVICE, card)
+    if torch.cuda.device_count() >= HALO_WORLD:
+        devices = [f"cuda:{i}" for i in range(HALO_WORLD)]
+        dryrun_multichip(HALO_WORLD, "nccl", "cuda")
+        halo_worm_checks("nccl", devices, card)
+    else:
+        print(f"nccl: not run ({torch.cuda.device_count()} card)",
+              flush=True)
+    return dict(kernels={}, launches={
+        "halo": per_step["replicated"],
+        "halo_distributed": per_step["distributed"]})
+
+
 # name -> phase(card, profile_steps), in running order; a phase that runs a
 # kernel's main path returns its ``kernels`` entries and launches a step
 PHASES = {"small": small_box_phases, "box": box_phases,
@@ -2842,7 +3129,8 @@ PHASES = {"small": small_box_phases, "box": box_phases,
           "fast_worm": fast_worm_phases, "exact": exact_phases,
           "bench": bench_phase, "pack": pack_phase, "ab": ab_phase,
           "graph": graph_phase, "runtime": runtime_phase,
-          "scale": scale_phase, "locomotion": locomotion_phase}
+          "scale": scale_phase, "locomotion": locomotion_phase,
+          "halo": halo_phase}
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Command-line interface (counterpart of ``sph_tpu/cli.py``).
 
     python -m sph_tpu_torch run --scene worm|box|CONFIG_DIR [--box 30,20,250]
-        [--fill 0.15] [--dt S] --steps N [--engine auto|exact|fast|fastw]
+        [--fill 0.15] [--dt S] --steps N
+        [--engine auto|exact|fast|fastw|halo] [--backend gloo|nccl]
         [--device cuda|cpu] [--ccol N] [--ccol-c N] [--resort-every N]
         [--adaptive-resort] [--dump DIR --dump-every K]
         [--checkpoint PATH] [--restore PATH]
@@ -16,6 +17,13 @@ reference's three flags map as there (``-l_to`` -> ``run --dump``,
 ``-l_from`` -> ``replay``, graphics -> ``run --render-every``). ``--device``
 (default cuda) picks the card's kernels or the CPU's plain versions.
 Rendering (``--render-every``, ``replay``) needs matplotlib and PIL.
+
+``--engine halo`` shards the fast engine over the ranks of a process group:
+under ``torchrun --nproc-per-node N -m sph_tpu_torch run --engine halo``
+each rank joins the group from torchrun's environment (``--backend``, gloo
+by default: ranks may share a card; nccl needs a card a rank, rank r on
+``cuda:LOCAL_RANK``), and rank 0 prints and writes the files. Without
+torchrun it is a world of one.
 """
 from __future__ import annotations
 
@@ -49,28 +57,52 @@ def _make_scene(args, params):
     return io.load_scene(args.scene)  # a config directory
 
 
+def _join_ranks(args):
+    """Under torchrun (WORLD_SIZE > 1) join the process group from its
+    environment; returns (this rank's device, rank, whether this call
+    started the group)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.engine != "halo" or world == 1 or dist.is_initialized():
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        return args.device, rank, False
+    device = args.device
+    if device == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        device = f"cuda:{local % max(1, torch.cuda.device_count())}"
+        torch.cuda.set_device(device)
+    dist.init_process_group(args.backend, init_method="env://")
+    return device, dist.get_rank(), True
+
+
 def cmd_run(args) -> int:
     from .runtime import Simulator
 
+    device, rank, joined = _join_ranks(args)
+    say = print if rank == 0 else (lambda *a, **k: None)
     params = _make_params(args)
     t0 = time.time()
     scene = _make_scene(args, params)
-    print(f"scene: {scene.counts} ({time.time() - t0:.1f}s)")
+    say(f"scene: {scene.counts} ({time.time() - t0:.1f}s)")
 
     fck = {k: v for k, v in (
         ("ccol", args.ccol), ("ccol_c", args.ccol_c),
         ("resort_every", args.resort_every)) if v is not None}
     sim = Simulator(
-        scene, params, engine=args.engine, device=args.device,
+        scene, params, engine=args.engine, device=device,
         fast_config=fck or None, dump_dir=args.dump,
         dump_interval=args.dump_every,
         adaptive_resort=args.adaptive_resort,
-        log=print if args.verbose else None,
+        log=say if args.verbose else None,
     )
-    print(f"engine: {sim.engine}")
+    say(f"engine: {sim.engine}")
     if args.restore:
         sim.restore(args.restore)
-        print(f"restored from {args.restore} at step {sim.step_count}")
+        say(f"restored from {args.restore} at step {sim.step_count}")
 
     chunk = max(1, args.report_every)
     done = 0
@@ -78,14 +110,17 @@ def cmd_run(args) -> int:
         n = min(chunk, args.steps - done)
         ms = sim.step_blocking(n)
         done += n
-        print(f"[[ step {sim.step_count} ]]  {ms / n:8.3f} ms/step "
-              f"({1e3 / (ms / n):.1f} steps/s)")
+        say(f"[[ step {sim.step_count} ]]  {ms / n:8.3f} ms/step "
+            f"({1e3 / (ms / n):.1f} steps/s)")
         if args.render_every and sim.step_count % args.render_every == 0:
             from .viz import render_frame
 
             out = f"{args.render_dir}/step_{sim.step_count:06d}.png"
+            pos = sim.get_position()      # every rank gathers
+            if rank:
+                continue
             render_frame(
-                sim.get_position(), scene.ptype, out,
+                pos, scene.ptype, out,
                 springs=(scene.spring_rows, scene.spring_idx,
                          scene.spring_type),
                 tris=scene.tris,
@@ -96,8 +131,12 @@ def cmd_run(args) -> int:
             print(f"rendered {out}")
     if args.checkpoint:
         sim.save(args.checkpoint)
-        print(f"checkpoint -> {args.checkpoint}")
+        say(f"checkpoint -> {args.checkpoint}")
     sim.flush()  # drain the async trajectory stream before exit
+    if joined:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 
@@ -166,13 +205,18 @@ def main(argv=None) -> int:
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--restore", default=None)
     p.add_argument("--engine", default="auto",
-                   choices=["auto", "exact", "fast", "fastw"],
+                   choices=["auto", "exact", "fast", "fastw", "halo"],
                    help="exact = neighbour lists (the reference's nearest "
                         "32 within h; plain PyTorch gathers); "
                         "fast = blocked pair engine (walls in the carry); "
                         "fastw = wall-compact engine (static walls leave "
                         "the hot carry; auto picks it on wall-heavy "
-                        "scenes)")
+                        "scenes); halo = fast engine sharded over all "
+                        "ranks (z-slab halo exchange)")
+    p.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                   help="halo engine under torchrun: the process group's "
+                        "backend (gloo: ranks may share a card; nccl: a "
+                        "card a rank)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (Hopper kernels) or cpu "
                         "(plain PyTorch pair passes)")

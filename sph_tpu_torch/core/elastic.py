@@ -28,11 +28,19 @@ def elastic_accel(pos: torch.Tensor, springs: Springs,
     passes sorted positions and springs translated to sorted ids);
     ``activation`` [MUSCLE_COUNT]."""
     i = springs.row_ids.long()                       # [Ne]
-    valid = springs.idx >= 0                         # [Ne, 32]
     j = torch.clamp(springs.idx, min=0).long()
+    return spring_accel(pos[i], pos[j], springs, activation, params)
 
+
+def spring_accel(p_row: torch.Tensor, p_end: torch.Tensor, springs: Springs,
+                 activation: torch.Tensor, params: SimParams
+                 ) -> torch.Tensor:
+    """``elastic_accel`` from the rows' positions ``p_row`` [Ne, 3] and
+    their partners' ``p_end`` [Ne, 32, 3] (any value in unused slots); the
+    halo engine passes positions gathered across ranks."""
+    valid = springs.idx >= 0                         # [Ne, 32]
     scale = float(np.float32(params.simulation_scale))
-    d = (pos[i][:, None, :] - pos[j]) * scale        # [Ne, 32, 3], meters
+    d = (p_row[:, None, :] - p_end) * scale          # [Ne, 32, 3], meters
     r = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
                    + d[..., 2] * d[..., 2])
     ok = valid & (r != 0.0)

@@ -813,6 +813,17 @@ def _check(p: PairPass, tables, own, slab):
             f"{p.ccol}")
 
 
+def check_tile_offsets(aln, label: str) -> None:
+    """The ring driver's tile-offset precondition (every ``aln`` a
+    nonnegative multiple of 4), read where an engine builds its tables:
+    one host read a resort period, where ``_check`` reads only CPU tables
+    (a read a launch would sync the card)."""
+    if bool(((aln % 4 != 0) | (aln < 0)).any()):
+        raise ValueError(f"{label}: a tile offset (aln) that is negative or "
+                         "not a multiple of 4; the ring kernels' bulk "
+                         "copies need 16-byte aligned tiles")
+
+
 def _launch(p: PairPass, tables, own, slab):
     out = _call(p, tables, own, slab)
     LAUNCHES[p.launch_key] += 1

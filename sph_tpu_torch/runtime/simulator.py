@@ -6,15 +6,23 @@ one resort period), surfaces the engine's overflow diagnostics loudly,
 drives trajectory dumps every ``dump_interval`` steps (through the async
 writer, ``runtime.async_io``), saves and restores checkpoints that load in
 either package (``runtime.checkpoint``) and moves the resort period along
-the adaptive ladder. The exact, fast and wall-compact (fastw) engines are
-ported; on the card the fast engines replay each resort period from a CUDA
-graph (``core.graphed``), one graph a period length. The multi-GPU engine
-is not ported yet (ROADMAP Queue 1).
+the adaptive ladder. The exact, fast, wall-compact (fastw) and multi-GPU
+halo engines are ported; on the card the single-device fast engines replay
+each resort period from a CUDA graph (``core.graphed``), one graph a period
+length.
+
+The halo engine (``parallel/halo.py``) shards the fast engine over the
+ranks of the process group (a world of one without a group). Every rank
+builds the Simulator from the same scene and makes the same calls: its
+state holds the rank's rows, the getters and ``save`` gather every rank's
+(collectives), ``save`` is written by rank 0 only and ``restore`` reads the
+file on every rank.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 
 import numpy as np
 import torch
@@ -27,11 +35,6 @@ from .checkpoint import load_checkpoint, save_checkpoint
 from .timing import StepTimer
 
 logger = logging.getLogger("sph_tpu_torch")
-
-# engines of sph_tpu not ported yet -> the feature that ports them
-_NOT_PORTED = {
-    "halo": "multi-GPU, ROADMAP Queue 1",
-}
 
 
 def resolve_auto_engine(layout) -> str:
@@ -62,22 +65,31 @@ class Simulator:
         dump_interval: int = 10,
         async_io: bool = True,
         drift_threshold_h: float = 0.25,
+        distributed_resort: bool = False,
         log=None,
     ):
         """engine: "auto" (see :func:`resolve_auto_engine`), "exact" (the
         neighbour-list engine, the reference's nearest 32 within h;
         core/step.py), "fast" (the blocked pair engine, walls in the carry;
-        core/fast.py) or "fastw" (the wall-compact engine; core/fastw.py);
-        "halo" raises NotImplementedError naming its ROADMAP queue.
+        core/fast.py), "fastw" (the wall-compact engine; core/fastw.py)
+        or "halo" (the fast engine sharded over the process group's ranks
+        with z-slab halo exchange, parallel/halo.py; pads the scene to
+        ranks x block with frozen wall rows).
         device: a torch device; "cuda" runs the pair passes as Hopper
-        kernels, "cpu" as their plain PyTorch versions. fast_config:
-        keyword overrides for ``compute_fast_config`` (fast:
+        kernels, "cpu" as their plain PyTorch versions (the halo engine:
+        this rank's device). fast_config: keyword overrides for
+        ``compute_fast_config`` (fast and halo:
         block/ccol/ccol_c/resort_every/sub) or ``compute_fastw_config``
         (fastw: block/ccol/ccol_c/resort_every/dilate/shell_margin).
         cuda_graph: on the card, the fast engines replay each resort
         period from a CUDA graph captured at its first step
         (``core.graphed``); False, or the CPU, steps the eager loop. The
-        exact engine has no graph.
+        exact and halo engines have no graph (the halo engine's steps
+        need collectives).
+
+        distributed_resort (halo engine): the O(cells) distributed resort
+        instead of the replicated all-gather one; ``check_overflow`` then
+        reports ``resort_overflow`` too.
 
         dump_dir: write ``position_buffer.txt`` (and the spring and
         membrane buffers) there, a frame at step 0 and every
@@ -105,16 +117,27 @@ class Simulator:
         self.layout = scene.layout()
         if engine == "auto":
             engine = resolve_auto_engine(self.layout)
-        if engine in _NOT_PORTED:
-            raise NotImplementedError(
-                f"engine {engine!r} is not ported yet: {_NOT_PORTED[engine]}")
-        if engine not in ("exact", "fast", "fastw"):
+        if engine not in ("exact", "fast", "fastw", "halo"):
             raise ValueError(f"unknown engine {engine!r}")
         self._cuda_graph = cuda_graph
         self.engine = engine
         self.dump_interval = dump_interval
+        self._comm = None
+        self._distributed_resort = bool(distributed_resort)
 
         fck = dict(fast_config or {})
+        if engine == "halo":
+            from ..core.fast import compute_fast_config
+            from ..parallel import make_mesh, pad_scene_to_devices
+
+            self._comm = make_mesh(device=self.device)
+            ndev = self._comm.world
+            # blocks must divide across the ranks
+            fck["block_multiple"] = math.lcm(8, ndev)
+            block = compute_fast_config(scene.pos, self.params, **fck).block
+            scene = pad_scene_to_devices(scene, ndev * block)
+            self.scene = scene
+            self.layout = scene.layout()
         if engine == "exact":
             # Scene-derived cell capacity: the default silently truncates
             # neighbour candidates on dense scenes (the reference's failure
@@ -125,7 +148,7 @@ class Simulator:
             if cap > self.params.cell_capacity:
                 self.params = dataclasses.replace(self.params,
                                                   cell_capacity=cap)
-        elif engine == "fast":
+        elif engine in ("fast", "halo"):
             from ..core.fast import compute_fast_config
 
             self._fast_cfg = compute_fast_config(scene.pos, self.params,
@@ -159,15 +182,23 @@ class Simulator:
                 reverse=True)
         self.state, self.springs, self.membranes = scene.device_state(
             self.device)
+        if self._comm is not None:
+            from ..parallel import shard_state
+
+            self.state = shard_state(self.state, self._comm)
         self._reset_diag()
         self.timer = StepTimer(device=self.device, log=log)
-        self._dumper = TrajectoryDumper(dump_dir, scene) if dump_dir else None
+        # the files are written by one rank (rank 0 of the halo engine)
+        self._writes = self._comm is None or self._comm.rank == 0
+        self._dumping = bool(dump_dir)
+        self._dumper = (TrajectoryDumper(dump_dir, scene)
+                        if dump_dir and self._writes else None)
         self._writer = None
         if async_io:
             from .async_io import AsyncWriter
 
             self._writer = AsyncWriter()
-        if self._dumper:
+        if self._dumping:
             self._dump_frame(check=False)
 
     def _reset_diag(self):
@@ -176,6 +207,7 @@ class Simulator:
         self._tile_overflow = z
         self._window_drift = torch.zeros((), dtype=torch.float32,
                                          device=self.device)
+        self._halo_overflow = self._resort_overflow = z
 
     # ------------------------------------------------------------------
     # stepping
@@ -196,6 +228,8 @@ class Simulator:
         """A new period runner of ``n`` steps for ``layout``; assigns
         nothing, so a layout the engine refuses raises with the Simulator
         unchanged."""
+        if self.engine == "halo":
+            return self._make_halo_run(n, layout)
         if self.engine == "fast":
             from ..core.fast import make_fast_multi_step
 
@@ -212,6 +246,23 @@ class Simulator:
         return make_fastw_multi_step(
             self.params, layout, self._fast_cfg, n, return_diag=True,
             wall_static=self._wall_static, cuda_graph=self._cuda_graph)
+
+    def _make_halo_run(self, n: int, layout):
+        """The halo engine's runner: the scene-measured halo band and
+        migration buffers, clamped to the rows of one rank (the overflow
+        counts still surface any resort-time violation)."""
+        from ..parallel import (make_halo_fast_multi_step, measure_halo_pad,
+                                measure_migration_pad)
+
+        cfg = self._fast_cfg
+        per_dev = cfg.n_blocks // self._comm.world * cfg.block
+        pos = self.scene.pos
+        return make_halo_fast_multi_step(
+            self._comm, self.params, layout, cfg, n,
+            halo_pad=min(measure_halo_pad(pos, self.params, cfg), per_dev),
+            distributed_resort=self._distributed_resort,
+            mig_cap=min(measure_migration_pad(pos, self.params, cfg),
+                        per_dev) if self._distributed_resort else None)
 
     def _run(self, n: int):
         if self.engine == "exact":
@@ -232,7 +283,8 @@ class Simulator:
             remaining -= size
             # device-side max across chunks, no host sync (per chunk: the
             # drift of each resort period, as sph_tpu's _track_drift)
-            for k in ("shell_overflow", "tile_overflow", "window_drift"):
+            for k in ("shell_overflow", "tile_overflow", "halo_overflow",
+                      "resort_overflow", "window_drift"):
                 if k in diag:
                     setattr(self, "_" + k, torch.maximum(
                         getattr(self, "_" + k), diag[k]))
@@ -250,6 +302,24 @@ class Simulator:
                 "shell_margin/dilate in compute_fastw_config",
                 ovf_s, int(state.step),
             )
+        if self.engine == "halo":
+            # particle LOSS is loud at the run site, not only in a pollable
+            # diagnostic: the distributed resort drops rows that overrun its
+            # migration buffers, and clipped halo windows drop pairs. Every
+            # rank holds the same counts, so every rank logs
+            ovf_r = int(self._resort_overflow)
+            if ovf_r:
+                logger.error(
+                    "distributed resort DROPPED %d particle(s) by step %d "
+                    "(migration buffers overran mig_cap) — mass is lost; "
+                    "raise mig_cap (see measure_migration_pad) or lower "
+                    "resort_every", ovf_r, int(state.step))
+            ovf_h = int(self._halo_overflow)
+            if ovf_h:
+                logger.error(
+                    "halo windows clipped %d row(s) by step %d — pairs are "
+                    "being dropped; raise halo_pad (see measure_halo_pad)",
+                    ovf_h, int(state.step))
         return state
 
     def _climb_ladder(self, chunk: int) -> None:
@@ -272,7 +342,7 @@ class Simulator:
         """Advance n steps; with a ``dump_dir``, run to each dump boundary
         and dump a frame there (as sph_tpu does: an interval shorter than
         the resort period makes every chunk of the run shorter too)."""
-        if self._dumper is None:
+        if not self._dumping:
             self.state = self._run(n)
             return
         done = 0
@@ -292,12 +362,15 @@ class Simulator:
         then anyway)."""
         if self._writer is not None:
             # the frame's formatting overlaps the next chunk on the IO thread
-            self._writer.submit(self._dumper.append, self.state.pos)
+            pos = self._full_state().pos
+            if self._dumper:
+                self._writer.submit(self._dumper.append, pos)
             if check:
                 self.check_overflow()
         else:
             pos = self.get_position()
-            self._dumper.append(pos)
+            if self._dumper:
+                self._dumper.append(pos)
             if check:
                 self.check_overflow(pos)
 
@@ -317,10 +390,13 @@ class Simulator:
         ``tile_table_stats``, as sph_tpu does), fastw's shell overflow
         (dropped moving-wall pairs), and the worst per-resort-period
         pair-approach bound in units of h (2x the summed per-step max
-        displacement). Warns on any overflow and on drift > 0.25 h.
+        displacement). Warns on any overflow and on drift > 0.25 h. The
+        halo engine: the fast engine's counts plus ``halo_overflow``
+        (window bounds the halo band clipped: dropped pairs) and, with the
+        distributed resort, ``resort_overflow`` (dropped particles).
         ``pos``: the current positions on the host, where the caller has
         them."""
-        if pos is None and self.engine in ("exact", "fast"):
+        if pos is None and self.engine in ("exact", "fast", "halo"):
             pos = self.get_position()
         if self.engine == "exact":
             from ..core.grid import max_cell_occupancy
@@ -335,7 +411,11 @@ class Simulator:
                     self.step_count, out)
             return out
         out = {"cell_overflow": 0}
-        if self.engine == "fast":
+        if self.engine == "halo":
+            out["halo_overflow"] = int(self._halo_overflow)
+            if self._distributed_resort:
+                out["resort_overflow"] = int(self._resort_overflow)
+        if self.engine in ("fast", "halo"):
             from ..core.fast import tile_caps, tile_table_stats
 
             cfg = self._fast_cfg
@@ -368,11 +448,20 @@ class Simulator:
     # state API
     # ------------------------------------------------------------------
 
+    def _full_state(self):
+        """The state of every particle (the halo engine: every rank's rows
+        gathered; a collective, so every rank calls it)."""
+        if self._comm is None:
+            return self.state
+        from ..parallel.sharded import gather_state
+
+        return gather_state(self.state, self._comm)
+
     def get_position(self) -> np.ndarray:
-        return self.state.pos.cpu().numpy()
+        return self._full_state().pos.cpu().numpy()
 
     def get_velocity(self) -> np.ndarray:
-        return self.state.vel.cpu().numpy()
+        return self._full_state().vel.cpu().numpy()
 
     def get_density(self) -> np.ndarray:
         return self.get_diagnostics()["rho"]
@@ -386,8 +475,8 @@ class Simulator:
         neighbor_count, neighbor_overflow, cell_overflow."""
         from ..core.step import diagnostics
 
-        return {k: v.cpu().numpy()
-                for k, v in diagnostics(self.state, self.params).items()}
+        return {k: v.cpu().numpy() for k, v in diagnostics(
+            self._full_state(), self.params).items()}
 
     def get_elastic_connections(self):
         """(partner ids, rest lengths, muscle ids), each [Ne, 32]."""
@@ -421,8 +510,11 @@ class Simulator:
         ``wait=False`` hands the write to the async IO thread (with
         ``async_io=True``): the device->host copy is enqueued now, the npz
         compression overlaps further stepping; call :meth:`flush` before
-        reading the file."""
-        args = (path, self.state, self.springs, self.membranes)
+        reading the file. The halo engine gathers every rank's rows (every
+        rank calls ``save``) and rank 0 writes."""
+        args = (path, self._full_state(), self.springs, self.membranes)
+        if not self._writes:
+            return
         if not wait and self._writer is not None:
             self._writer.submit(save_checkpoint, *args,
                                 color=self.scene.color)
@@ -451,11 +543,16 @@ class Simulator:
         springs, membranes, layout and runners;
         (c) otherwise the Simulator keeps its own reference tensors and
         takes only ``pos``, ``vel``, ``muscle_activation`` and ``step``, so
-        its period graphs replay on."""
+        its period graphs replay on. The halo engine: every rank reads the
+        file and keeps its own rows."""
         state, springs, membranes, color = load_checkpoint(path, "cpu")
         self._check_restorable(state)
         # everything that can fail is built before anything is assigned: a
         # refused checkpoint leaves the Simulator stepping its old state
+        if self._comm is not None:
+            from ..parallel import shard_state
+
+            state = shard_state(state, self._comm)
         fields = {f: getattr(state, f).to(self.device)
                   for f in ("pos", "vel", "muscle_activation", "step")}
         if not (_same(springs, self.springs)
@@ -468,7 +565,7 @@ class Simulator:
     def _check_restorable(self, state) -> None:
         sc = self.scene
         what = []
-        if state.pos.shape != self.state.pos.shape:
+        if state.pos.shape != (sc.n_particles, 3):
             raise ValueError(
                 f"checkpoint holds {state.pos.shape[0]} particles, this "
                 f"Simulator's scene {sc.n_particles}")

@@ -454,9 +454,9 @@ def test_port_steps_reduced_worm(worm):
 
 
 def test_unported_paths_raise(tmp_path):
-    """The halo engine raises; dumps, the adaptive resort and checkpoints,
-    ported since, no longer do; a wall-free blob, which auto sends to the
-    fast engine, steps."""
+    """No path raises any more: the halo engine (ported since, a world of
+    one here), dumps, the adaptive resort and checkpoints step; a
+    wall-free blob, which auto sends to the fast engine, steps."""
     params = params_from(JParams(**BOX))
     box = generate_liquid_box_scene(params, fill_fraction=0.5)
     blob = port_scene(sparse_blob_scene(JParams(**BOX)))
@@ -465,9 +465,9 @@ def test_unported_paths_raise(tmp_path):
     sim.step(2)
     assert sim.step_count == 2 and np.isfinite(sim.get_position()).all()
     assert np.abs(sim.get_position() - blob.pos).max() > 1e-3
-    with pytest.raises(NotImplementedError,
-                       match="multi-GPU, ROADMAP Queue 1"):
-        Simulator(box, params, engine="halo", device="cpu")
+    halo = Simulator(box, params, engine="halo", device="cpu")
+    halo.step(1)
+    assert halo.step_count == 1 and np.isfinite(halo.get_position()).all()
     for kw in (dict(dump_dir=str(tmp_path / "frames")),
                dict(adaptive_resort=True)):
         sim = Simulator(box, params, device="cpu", **kw)

@@ -1,0 +1,344 @@
+"""The port's multi-GPU halo engine (``sph_tpu_torch.parallel.halo``) on gloo
+CPU ranks (``run_ranks``), against the port's single-device fast engine and
+sph_tpu's halo engine (``sph_tpu.parallel``, 2 of the 8 virtual devices of
+``tests/conftest.py``, Pallas in interpret mode), one sph_tpu call a module
+fixture.
+
+The cases are ``tests/test_halo.py``'s but its slow multi-worm one, run at
+2 ranks (the box also at 4), on the same padded scene, config and halo_pad
+in both packages. The box is kicked (``KICK`` of ``tests/test_torch_fast``'s
+kicked box: jittered, lowered and pushed down), so pressure and wall sums
+are live from the first step.
+
+Tolerances:
+
+* against the port's fast engine, sph_tpu's own halo tolerances: 2e-5 on
+  the box, 5e-5 on the worm and across resorts of either resort;
+* against sph_tpu's halo engine, those of the existing port tests: the
+  box ``tests/test_torch_fast.py``'s ATOL/VTOL (positions 5e-5,
+  velocities 5e-4); the worm ``tests/test_torch_worm_agreement.py``'s
+  velocity bound, 1e-3 on every row, for velocities and positions. Its
+  1e-4 on positions does not fit this worm (springs anchored to walls,
+  strain 0.65 by step 2): the port's fast engine and sph_tpu's part by
+  2.3e-4 there in 3 steps, the halo engines by the same, and one ulp of the
+  moving inputs moves the port's own result by 6.9e-4, which the test
+  shows;
+* overflow counts equal to sph_tpu's.
+
+Its own file with at most 8 tests, so that ``--dist loadfile`` queues it
+behind ``tests/test_fast_engine.py``."""
+import dataclasses
+import functools
+import logging
+import math
+
+import numpy as np
+import pytest
+import torch
+from scipy.spatial import cKDTree
+
+from sph_tpu.config import SimParams as JParams
+from sph_tpu.core import fast as JF
+from sph_tpu.parallel import dcn_edges as j_dcn_edges
+from sph_tpu.parallel import make_mesh as j_mesh
+from sph_tpu.parallel import pad_scene_to_devices as j_pad
+from sph_tpu.parallel import shard_state as j_shard
+from sph_tpu.parallel.halo import make_halo_fast_multi_step as j_halo
+from sph_tpu.scene import generate_liquid_box_scene as j_box
+from sph_tpu.scene import generate_worm_scene as j_worm
+from sph_tpu.scene import native
+
+from sph_tpu_torch.constants import (BOUNDARY_PARTICLE, ELASTIC_PARTICLE,
+                                     LIQUID_PARTICLE)
+from sph_tpu_torch.convert import params_from
+from sph_tpu_torch.core import fast as F
+from sph_tpu_torch.parallel import dcn_edges, pad_scene_to_devices
+from sph_tpu_torch.parallel.dryrun import halo_rank
+from sph_tpu_torch.parallel.launch import run_ranks
+from sph_tpu_torch.runtime import Simulator
+from sph_tpu_torch.scene import generate_liquid_box_scene
+
+import torch_ranks
+from test_torch_fast import ATOL, BOX_STEPS, VTOL
+from test_torch_fastw import KICK, WORM, port_scene
+from test_torch_pair_kernels import kick_box_scene
+
+H = 3.34
+BLOCK = 128
+BOX = dict(x_max=6 * H, y_max=6 * H, z_max=60 * H)
+HALO_WORM = dict(x_max=20 * H, y_max=12 * H, z_max=108 * H)
+BOX_TOL = 2e-5      # sph_tpu's halo tolerances against the fast engine
+WORM_TOL = 5e-5
+WORM_VTOL = 1e-3    # the worm rule against sph_tpu
+COINCIDENT = 0.01   # a liquid row this close to an elastic row, in r0
+REACH = 3.0         # rows this close to a coincident one, in h
+
+
+def kicked_box():
+    jp = JParams(**BOX)
+    return jp, kick_box_scene(j_box(jp, fill_fraction=0.5), jp, **KICK)
+
+
+def padded(js, world):
+    """The port's copy of sph_tpu's scene, padded to ``world * BLOCK`` by
+    both packages (bitwise equal)."""
+    scene = pad_scene_to_devices(port_scene(js), world * BLOCK)
+    np.testing.assert_array_equal(scene.pos, j_pad(js, world * BLOCK).pos)
+    return scene
+
+
+def port_cfg(scene, params, world, **kw):
+    return F.compute_fast_config(scene.pos, params, block=BLOCK,
+                                 block_multiple=math.lcm(8, world), **kw)
+
+
+def fast_ref(scene, params, cfg, steps):
+    return F.make_fast_multi_step(params, scene.layout(), cfg, steps)(
+        *scene.device_state("cpu"))
+
+
+def jax_halo(jp, js, world, steps, halo_pad, **cfg_kw):
+    """sph_tpu's halo engine on ``world`` virtual devices: (state, diag)."""
+    js = j_pad(js, world * BLOCK)
+    cfg = JF.compute_fast_config(js.pos, jp, block=BLOCK, interpret=True,
+                                 **cfg_kw)
+    assert cfg.interpret
+    mesh = j_mesh(world)
+    state, springs, membranes = js.device_state()
+    return j_halo(mesh, jp, js.layout(), cfg, steps, halo_pad=halo_pad)(
+        j_shard(state, mesh), springs, membranes)
+
+
+def ranks(world, *args, **kw):
+    """halo_rank's results on ``world`` gloo CPU ranks."""
+    return run_ranks(functools.partial(halo_rank, **kw), world, "gloo",
+                     "cpu", *args)
+
+
+def overflows(diag):
+    return {k: int(v) for k, v in diag.items() if k.endswith("overflow")}
+
+
+def assert_close(run, ref, tol, steps):
+    np.testing.assert_allclose(run["pos"], ref.pos.numpy(), rtol=0,
+                               atol=tol)
+    assert int(run["step"]) == steps
+
+
+@pytest.fixture(scope="module")
+def box_jax():
+    jp, js = kicked_box()
+    return jax_halo(jp, js, 2, BOX_STEPS, 512, sub=32)
+
+
+def test_halo_box_matches_fast_and_sph_tpu(box_jax):
+    """The kicked box at sub 32 (the gated passes' gate windows in slab
+    coordinates), halo_pad 512, on 2 ranks (4 steps: the kicked box's
+    steps in ``tests/test_torch_fast.py``, whose ATOL holds there) and on
+    4 ranks (5 steps, against the port's fast engine)."""
+    jp, js = kicked_box()
+    params = params_from(jp)
+    for world, steps in ((2, BOX_STEPS), (4, 5)):
+        scene = padded(js, world)
+        cfg = port_cfg(scene, params, world, sub=32)
+        run = ranks(world, scene, params, cfg, [(steps, False)],
+                    halo_pad=512)[0][0]
+        ref = fast_ref(scene, params, cfg, steps)
+        assert_close(run, ref, BOX_TOL, steps)
+        np.testing.assert_allclose(run["vel"], ref.vel.numpy(), rtol=0,
+                                   atol=BOX_TOL)
+        assert overflows(run["diag"]) == {"halo_overflow": 0}
+        if world == 2:
+            jout, jdiag = box_jax
+            assert overflows(jdiag) == overflows(run["diag"])
+            np.testing.assert_allclose(run["pos"], np.asarray(jout.pos),
+                                       rtol=0, atol=ATOL)
+            np.testing.assert_allclose(run["vel"], np.asarray(jout.vel),
+                                       rtol=0, atol=VTOL)
+            np.testing.assert_allclose(float(run["diag"]["window_drift"]),
+                                       float(jdiag["window_drift"]),
+                                       rtol=1e-3)
+    # the kick moved the pool: the comparisons are not of a resting box
+    moving = scene.ptype == LIQUID_PARTICLE
+    assert np.abs(run["pos"][moving] - scene.pos[moving]).max() > 1e-2
+
+
+def nudged(scene, seed=1):
+    """``scene`` with every moving coordinate one ulp off, up or down."""
+    rng = np.random.default_rng(seed)
+    moving = scene.ptype != BOUNDARY_PARTICLE
+    pos = scene.pos.copy()
+    pos[moving] = np.nextafter(pos[moving], np.where(
+        rng.random(pos[moving].shape) < 0.5, -np.inf, np.inf).astype(
+            np.float32))
+    return dataclasses.replace(scene, pos=pos)
+
+
+def near_coincident(scene, params):
+    """Rows within REACH h of a liquid row that sits within COINCIDENT r0
+    of an elastic row (the generated worm's ill-conditioned rows)."""
+    p0 = scene.pos
+    elastic = scene.ptype == ELASTIC_PARTICLE
+    liquid = np.flatnonzero(scene.ptype == LIQUID_PARTICLE)
+    d = cKDTree(p0[elastic]).query(p0[liquid])[0]
+    near = np.zeros(len(p0), bool)
+    for rows in cKDTree(p0).query_ball_point(
+            p0[liquid[d < COINCIDENT * params.r0]], REACH * params.h):
+        near[rows] = True
+    return near
+
+
+@pytest.fixture(scope="module")
+def worm_jax():
+    jp = JParams(**HALO_WORM)
+    saved = native.available
+    native.available = lambda: False
+    try:
+        js = j_worm(jp)
+    finally:
+        native.available = saved
+    return jp, js, jax_halo(jp, js, 2, 3, 2048, resort_every=2)
+
+
+def test_halo_worm_matches_fast_and_sph_tpu(worm_jax):
+    """Full physics across a resort (3 steps at resort_every 2), both
+    resorts: the 20h x 12h x 108h worm (springs anchored to walls: the
+    gather fallback) against sph_tpu's halo engine and the port's fast
+    engine, and the reduced worm (every anchor elastic: the compact-slab
+    spring pass) against the port's fast engine."""
+    jp, js, (jout, jdiag) = worm_jax
+    params = params_from(jp)
+    scene = padded(js, 2)
+    assert not scene.layout().springs_elastic_only
+    cfg = port_cfg(scene, params, 2, resort_every=2)
+    rep, dist = ranks(2, scene, params, cfg, [(3, False), (3, True)],
+                      halo_pad=2048)[0]
+    ref = fast_ref(scene, params, cfg, 3)
+    for run in (rep, dist):
+        assert_close(run, ref, WORM_TOL, 3)
+        assert not any(overflows(run["diag"]).values())
+    assert overflows(jdiag) == overflows(rep["diag"])
+    np.testing.assert_allclose(rep["muscle_activation"],
+                               np.asarray(jout.muscle_activation), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(rep["vel"], np.asarray(jout.vel), rtol=0,
+                               atol=WORM_VTOL)
+    # the worm rule's 1e-4 (beyond the near-coincident rows) presumes the
+    # f32 problem fixes positions to 1e-4; on this squeezed, wall-anchored
+    # worm it does not: one ulp of the moving inputs moves the port's own
+    # result further than that in 3 steps, so positions are held to the
+    # rule's velocity bound
+    near = near_coincident(scene, params)
+    spread = np.abs(fast_ref(nudged(scene), params, cfg, 3).pos.numpy()
+                    - ref.pos.numpy()).max(1)
+    assert spread[~near].max() > 1e-4, spread[~near].max()
+    np.testing.assert_allclose(rep["pos"], np.asarray(jout.pos), rtol=0,
+                               atol=WORM_VTOL)
+
+    from sph_tpu_torch.scene import generate_worm_scene
+
+    rparams = params_from(JParams(**WORM))
+    rworm = pad_scene_to_devices(generate_worm_scene(rparams), 2 * BLOCK)
+    assert rworm.layout().springs_elastic_only
+    rcfg = port_cfg(rworm, rparams, 2, resort_every=2)
+    ref = fast_ref(rworm, rparams, rcfg, 3)
+    for run in ranks(2, rworm, rparams, rcfg, [(3, False), (3, True)],
+                     halo_pad=2048)[0]:
+        assert_close(run, ref, WORM_TOL, 3)
+        assert not any(overflows(run["diag"]).values())
+
+
+def test_distributed_resort_matches_replicated():
+    """The O(cells) distributed resort against the replicated one across
+    several resorts (8 steps at resort_every 3, sub 32): the intra-cell
+    orders differ, so they agree to f32 round-off, not bitwise."""
+    jp, js = kicked_box()
+    params = params_from(jp)
+    scene = padded(js, 2)
+    cfg = port_cfg(scene, params, 2, resort_every=3, sub=32)
+    rep, dist = ranks(2, scene, params, cfg, [(8, False), (8, True)],
+                      halo_pad=512)[0]
+    assert overflows(rep["diag"]) == {"halo_overflow": 0}
+    assert overflows(dist["diag"]) == {"halo_overflow": 0,
+                                       "resort_overflow": 0}
+    assert np.abs(dist["pos"] - rep["pos"]).max() <= 5e-5
+    assert int(dist["step"]) == 8
+    assert_close(dist, fast_ref(scene, params, cfg, 8), WORM_TOL, 8)
+
+
+def test_halo_session_matches_multi_step():
+    """begin -> 2 x step -> finish reproduces the one-call distributed run
+    bitwise: the same sweeps and arithmetic, only the call boundaries
+    differ."""
+    jp, js = kicked_box()
+    params = params_from(jp)
+    scene = padded(js, 2)
+    cfg = port_cfg(scene, params, 2, resort_every=3, sub=32)
+    r = run_ranks(torch_ranks.session_vs_call, 2, "gloo", "cpu", scene,
+                  params, cfg, 2, 512)[0]
+    assert r["diags"] == [{"halo_overflow": 0, "resort_overflow": 0}] * 2
+    assert int(r["step"]) == 6
+    np.testing.assert_array_equal(r["pos"], r["call"]["pos"])
+    np.testing.assert_array_equal(r["vel"], r["call"]["vel"])
+
+
+def test_mesh2_two_level():
+    """A 2 x 2 two-level chain: the halo engine runs unchanged over the
+    slice-major order, and ``dcn_edges`` names the slice-boundary edges as
+    sph_tpu's does."""
+    for shape in ((2, 4), (4, 2), (2, 2)):
+        assert dcn_edges(*shape) == j_dcn_edges(*shape)
+    assert dcn_edges(2, 4) == [(3, 4)]
+    jp, js = kicked_box()
+    params = params_from(jp)
+    scene = padded(js, 4)
+    cfg = port_cfg(scene, params, 4, resort_every=3)
+    run = run_ranks(torch_ranks.mesh2_halo, 4, "gloo", "cpu", 2, 2, scene,
+                    params, cfg, 4, 512)[0]
+    assert overflows(run["diag"]) == {"halo_overflow": 0,
+                                      "resort_overflow": 0}
+    assert_close(run, fast_ref(scene, params, cfg, 4), WORM_TOL, 4)
+
+
+def test_migration_overflow_detected():
+    """The distributed resort COUNTS dropped rows: the whole box advected
+    by about a cell a step overruns a deliberately tiny mig_cap (8) at its
+    second resort, and the count equals sph_tpu's on the same scene."""
+    params = params_from(JParams(**BOX))
+    jp = JParams(**BOX)
+    js = j_box(jp, fill_fraction=0.5)
+    js.vel = js.vel + np.array(
+        [0, 0, H / (jp.time_step * jp.simulation_scale_inv)], np.float32)
+    scene = padded(js, 2)
+    cfg = port_cfg(scene, params, 2, resort_every=2)
+    run = ranks(2, scene, params, cfg, [(4, True)], halo_pad=512,
+                mig_cap=8)[0][0]
+
+    jsp = j_pad(js, 2 * BLOCK)
+    jcfg = JF.compute_fast_config(jsp.pos, jp, block=BLOCK, resort_every=2,
+                                  interpret=True)
+    mesh = j_mesh(2)
+    state, springs, membranes = jsp.device_state()
+    _, jdiag = j_halo(mesh, jp, jsp.layout(), jcfg, 4, halo_pad=512,
+                      distributed_resort=True, mig_cap=8)(
+        j_shard(state, mesh), springs, membranes)
+    assert overflows(run["diag"])["resort_overflow"] > 0
+    assert overflows(run["diag"]) == overflows(jdiag)
+
+
+def test_particle_loss_is_loud(caplog):
+    """Dropped particles produce an ERROR at the Simulator's run site, not
+    only a pollable count (a world of one, the distributed resort)."""
+    params = params_from(JParams(**BOX))
+    scene = generate_liquid_box_scene(params, fill_fraction=0.5)
+    sim = Simulator(scene, params, engine="halo", distributed_resort=True,
+                    device="cpu")
+    # as if a chunk had reported this overflow
+    sim._resort_overflow = torch.tensor(7, dtype=torch.int32)
+    with caplog.at_level(logging.ERROR, logger="sph_tpu_torch"):
+        sim.step(1)
+    assert any(r.levelno == logging.ERROR and "DROPPED" in r.getMessage()
+               for r in caplog.records), caplog.records
+    # check_overflow reports (and resets) the same accumulator
+    assert sim.check_overflow()["resort_overflow"] >= 7
+    assert sim.check_overflow()["resort_overflow"] == 0
