@@ -287,12 +287,6 @@ from sph_tpu_torch.core.elastic import elastic_accel
 from sph_tpu_torch.models import muscle
 from sph_tpu_torch.ops import _build
 from sph_tpu_torch.ops import pair_kernels as pk
-from sph_tpu_torch.parallel import (make_halo_fast_multi_step,
-                                    measure_halo_pad, measure_migration_pad,
-                                    pad_scene_to_devices, shard_state)
-from sph_tpu_torch.parallel.comm import Comm
-from sph_tpu_torch.parallel.dryrun import dryrun_multichip
-from sph_tpu_torch.parallel.launch import run_ranks
 from sph_tpu_torch.runtime import Simulator
 from sph_tpu_torch.runtime import checkpoint as CK
 from sph_tpu_torch.scene import (generate_liquid_box_scene,
@@ -2880,6 +2874,10 @@ def halo_worm(world):
     """(params, the full worm padded to ``world * block``, its fast config
     at resort_every ``HALO_PERIOD``, the Simulator's measured halo_pad and
     mig_cap clamped to the rows of one rank)."""
+    from sph_tpu_torch.parallel import (measure_halo_pad,
+                                        measure_migration_pad,
+                                        pad_scene_to_devices)
+
     params = SimParams()
     scene = generate_worm_scene(params)
     kw = dict(resort_every=HALO_PERIOD, block_multiple=math.lcm(8, world))
@@ -2911,6 +2909,7 @@ def record_halo_rank(comm, scene, params, cfg, pads, start, names):
     replicated resort) from ``start``, recorded on the rank that owns the
     most rows the passes act on (liquid rows for the liquid passes,
     elastic rows for the spring and membrane passes); {} elsewhere."""
+    from sph_tpu_torch.parallel import make_halo_fast_multi_step, shard_state
     from sph_tpu_torch.parallel.dryrun import with_start
 
     state, springs, membranes = scene.device_state(comm.device)
@@ -2941,18 +2940,49 @@ def record_halo_rank(comm, scene, params, cfg, pads, start, names):
             else calls[k] for k in names}
 
 
+def timed_comm(comm):
+    """``comm`` with its four operations timed: each adds its host seconds,
+    from a drained device to its return, to ``comm.seconds`` and one to
+    ``comm.calls`` (so the wait for another rank's share of the card is in
+    them)."""
+    comm.seconds, comm.calls = 0.0, 0
+
+    def timed(op):
+        def call(*args, **kw):
+            if comm.device.type == "cuda":
+                torch.cuda.synchronize(comm.device)
+            t0 = time.perf_counter()
+            out = op(*args, **kw)
+            comm.seconds += time.perf_counter() - t0
+            comm.calls += 1
+            return out
+        return call
+
+    for name in ("all_gather", "psum", "send_next", "send_prev"):
+        setattr(comm, name, timed(getattr(comm, name)))
+    return comm
+
+
 def halo_worm_rank(comm, scene, params, cfg, pads, n_steps):
     """Rank function: the full worm through both resorts twice (the first
-    pair compared and counted, the second timed), then the inputs of one
-    step from the replicated run's end state recorded as it is (spring,
-    membrane) and kicked (the liquid passes; see ``kicked``)."""
+    pair compared and counted, the second timed, each with its collectives'
+    host time from ``timed_comm``), then the inputs of one step from the
+    replicated run's end state recorded as it is (spring, membrane) and
+    kicked (the liquid passes; see ``kicked``)."""
     from sph_tpu_torch.parallel.dryrun import halo_runs
+    from sph_tpu_torch.parallel.sharded import gather_state
 
+    comm = timed_comm(comm)
     out = []
     end = None
-    for full, rec in halo_runs(comm, scene, params, cfg,
-                               [(n_steps, False), (n_steps, True)] * 2,
-                               **pads):
+    seconds, calls = 0.0, 0
+    for res, rec in halo_runs(comm, scene, params, cfg,
+                              [(n_steps, False), (n_steps, True)] * 2,
+                              **pads):
+        rec.update(comm_seconds=comm.seconds - seconds,
+                   comm_calls=comm.calls - calls)
+        full = gather_state(res, comm)
+        seconds, calls = comm.seconds, comm.calls
         if comm.rank == 0:
             rec.update(pos=full.pos, vel=full.vel, step=full.step)
         out.append(rec)
@@ -2988,6 +3018,10 @@ def halo_compare(ref_pos, pos, near, label):
 def halo_worm_checks(backend, devices, card):
     """Phase 24 (b) and (c) on ``backend``: returns the launches a step of
     each resort, summed over the ranks."""
+    from sph_tpu_torch.parallel import make_halo_fast_multi_step
+    from sph_tpu_torch.parallel.comm import Comm
+    from sph_tpu_torch.parallel.launch import run_ranks
+
     params, scene, cfg, pads = halo_worm(HALO_WORLD)
     print(f"halo worm: {scene.counts}, n {scene.n_particles}, cfg {cfg}, "
           f"{pads}, {HALO_WORLD} {backend} ranks on {devices}", flush=True)
@@ -3093,7 +3127,11 @@ def worm_near_coincident(scene, params):
 
 
 def halo_phase(card, profile_steps):
-    # 24. the multi-GPU halo engine on ranks that share the card
+    # 24. the multi-GPU halo engine on ranks that share the card; the
+    # parallel package (torch.distributed, torch.multiprocessing) is
+    # imported here, so phases 1-23 run without it
+    from sph_tpu_torch.parallel.dryrun import dryrun_multichip
+
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     out = dryrun_multichip(HALO_WORLD, "gloo", HALO_DEVICE)

@@ -33,27 +33,25 @@ group the backend is the group's, named by whoever started it:
 """
 from __future__ import annotations
 
-import time
-
 import torch
 import torch.distributed as dist
 
 BACKENDS = ("gloo", "nccl")
+# torch 2.13 renamed all_gather_into_tensor (kept, deprecated) to
+# all_gather_single; earlier releases have only the first name
+_ALL_GATHER = (getattr(dist, "all_gather_single", None)
+               or dist.all_gather_into_tensor)
 
 
 class Comm:
     """A rank's view of the 1-D chain of the default process group's ranks
     (the particle axis), or of a world of one when no group is
-    initialized. ``device``: where this rank's tensors live. ``backend``,
-    when given, must be the group's."""
+    initialized. ``device``: where this rank's tensors live (the card
+    unless the caller names the CPU). ``backend``, when given, must be the
+    group's."""
 
-    def __init__(self, device="cpu", backend: str | None = None):
+    def __init__(self, device="cuda", backend: str | None = None):
         self.device = torch.device(device)
-        # host seconds inside the collectives and their count: under gloo
-        # on the card the clock starts once the work queued before a call
-        # has run (its staging copy waits for that anyway)
-        self.seconds = 0.0
-        self.calls = 0
         if not dist.is_initialized():
             self.rank, self.world, self.backend = 0, 1, None
             return
@@ -93,23 +91,19 @@ class Comm:
         """Every rank's ``a`` concatenated along dim 0, in rank order."""
         if self.world == 1:
             return a
-        t0 = self._clock()
         x = self._out(a)
         out = torch.empty((self.world * x.shape[0], *x.shape[1:]),
                           dtype=x.dtype, device=x.device)
-        gather = getattr(dist, "all_gather_single",
-                         dist.all_gather_into_tensor)
-        gather(out, x)
-        return self._done(t0, self._in(out, a))
+        _ALL_GATHER(out, x)
+        return self._in(out, a)
 
     def psum(self, a: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's ``a``."""
         if self.world == 1:
             return a
-        t0 = self._clock()
         x = self._out(a).clone()
         dist.all_reduce(x, op=dist.ReduceOp.SUM)
-        return self._done(t0, self._in(x, a))
+        return self._in(x, a)
 
     def send_next(self, a: torch.Tensor, fill=0) -> torch.Tensor:
         """Send ``a`` to rank + 1; return what rank - 1 sent (rank 0: the
@@ -128,29 +122,17 @@ class Comm:
         return self.all_gather(a.reshape(1)).max()
 
     def _shift(self, a, fill, to, frm):
-        t0 = self._clock() if self.world > 1 else None
         if not 0 <= frm < self.world:
             out = torch.empty_like(a)
             out.copy_(torch.as_tensor(fill, dtype=a.dtype,
                                       device=a.device).expand_as(a))
             if 0 <= to < self.world:        # still send ours on
                 self._p2p(a, None, to, frm)
-            return self._done(t0, out)
+            return out
         recv = (torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
                 if self._staged(a) else torch.empty_like(a))
         self._p2p(a, recv, to, frm)
-        return self._done(t0, self._in(recv, a))
-
-    def _clock(self):
-        if self.backend == "gloo" and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def _done(self, t0, out):
-        if t0 is not None:
-            self.seconds += time.perf_counter() - t0
-            self.calls += 1
-        return out
+        return self._in(recv, a)
 
     def _p2p(self, a, recv, to, frm):
         ops = []

@@ -2,9 +2,10 @@
 engines (counterpart of ``__graft_entry__.dryrun_multichip``).
 
     python -m sph_tpu_torch.parallel.dryrun [N] [--backend gloo|nccl]
-        [--device cpu|cuda]
+        [--device cuda|cpu]
 
-runs N ranks (default 2) through :func:`~.launch.run_ranks` on the reduced
+runs N ranks (default 2) through :func:`~.launch.run_ranks`, on the card
+unless ``--device cpu`` is given (gloo ranks share it), on the reduced
 worm (14h x 12h x 108h: full physics, springs anchored to the walls) and
 holds each sharded engine to its single-device counterpart, computed in
 this process on the same device:
@@ -67,9 +68,9 @@ def halo_runs(comm, scene, params, cfg, runs, halo_pad=None, mig_cap=None,
     """The halo engine's runs on ``scene`` (or from ``start``, a dict of
     full-size ``pos``/``vel``/``muscle_activation``/``step`` arrays), each
     from the same start: ``runs`` is a list of (n_steps,
-    distributed_resort). Yields (the gathered end state, a dict of the
-    run's diag, this rank's pair-kernel ``launches``, ``seconds``, and the
-    host ``comm_seconds`` and ``comm_calls`` of its collectives) a run."""
+    distributed_resort). Yields (this rank's end state, a dict of the
+    run's diag, this rank's pair-kernel ``launches`` and ``seconds``) a
+    run."""
     state, springs, membranes = scene.device_state(comm.device)
     if start is not None:
         state = with_start(state, start)
@@ -79,25 +80,22 @@ def halo_runs(comm, scene, params, cfg, runs, halo_pad=None, mig_cap=None,
             comm, params, scene.layout(), cfg, n_steps, halo_pad=halo_pad,
             distributed_resort=distributed, mig_cap=mig_cap)
         before = dict(pk.LAUNCHES)
-        c_s, c_n = comm.seconds, comm.calls
         (res, diag), secs = _timed(
             comm, lambda: run(state_l, springs, membranes))
-        rec = dict(diag=diag, seconds=secs, comm_seconds=comm.seconds - c_s,
-                   comm_calls=comm.calls - c_n,
-                   launches={k: v - before[k] for k, v in pk.LAUNCHES.items()
-                             if v != before[k]})
-        yield gather_state(res, comm), rec
+        yield res, dict(diag=diag, seconds=secs, launches={
+            k: v - before[k] for k, v in pk.LAUNCHES.items()
+            if v != before[k]})
 
 
 def halo_rank(comm, scene, params, cfg, runs, halo_pad=None, mig_cap=None,
               start=None):
     """Rank function: :func:`halo_runs`, one dict a run: ``diag`` (every
-    rank's equal), this rank's ``launches``, ``seconds`` and collectives'
-    time, and on rank 0 the gathered ``pos``/``vel``/
-    ``muscle_activation``/``step``."""
+    rank's equal), this rank's ``launches`` and ``seconds``, and on rank 0
+    the gathered ``pos``/``vel``/``muscle_activation``/``step``."""
     out = []
-    for full, rec in halo_runs(comm, scene, params, cfg, runs, halo_pad,
-                               mig_cap, start):
+    for res, rec in halo_runs(comm, scene, params, cfg, runs, halo_pad,
+                              mig_cap, start):
+        full = gather_state(res, comm)
         if comm.rank == 0:
             rec.update(pos=full.pos, vel=full.vel, step=full.step,
                        muscle_activation=full.muscle_activation)
@@ -137,9 +135,10 @@ def _dryrun_rank(comm, scene, scene_h, params, cfg, halo_pad):
 
 
 def dryrun_multichip(n_devices: int = 2, backend: str = "gloo",
-                     device="cpu") -> dict:
-    """The three checks of the module docstring on ``n_devices`` ranks
-    (gloo ranks may share one card; nccl needs a card a rank). Raises
+                     device="cuda") -> dict:
+    """The three checks of the module docstring on ``n_devices`` ranks on
+    ``device`` (gloo ranks may share one card; nccl needs a card a rank;
+    ``"cpu"`` runs them on the CPU's plain versions). Raises
     AssertionError on a failed check; returns the errors, the overflow
     counts and every rank's launches."""
     device = torch.device(device)
@@ -196,8 +195,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("n", type=int, nargs="?", default=2)
     ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if torch.device(args.device).type == "cuda" \
+            and not torch.cuda.is_available():
+        print("dryrun: CUDA is not available (--device cpu runs the ranks "
+              "on the CPU)", file=sys.stderr)
+        return 1
     dryrun_multichip(args.n, args.backend, args.device)
     return 0
 

@@ -51,6 +51,9 @@ def run_ranks(fn, world: int, backend: str, devices, *args):
         raise ValueError(f"nccl needs a distinct card a rank, got {devices}; "
                          "use gloo to share a card")
     if any(d.startswith("cuda") for d in devices):
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"ranks on {sorted(set(devices))}, but CUDA "
+                               "is not available: name the CPU (\"cpu\")")
         from ..ops import _build
 
         _build.build()

@@ -19,13 +19,13 @@ from .comm import Comm
 
 
 def make_mesh(n_devices: int | None = None, backend: str | None = None,
-              device="cpu") -> Comm:
+              device="cuda") -> Comm:
     """The rank chain over the default process group's ranks, in rank
     order (a world of one when no group is initialized). ``n_devices``,
     when given, must be the group's size: ranks join a group when they
     start, so a chain over fewer of them is a smaller launch, not a
     slice. ``backend``, when given, must be the group's. ``device``: this
-    rank's device."""
+    rank's device (the card unless the caller names the CPU)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if n_devices not in (None, world):
         raise ValueError(f"a chain of {n_devices} ranks in a world of "
@@ -34,7 +34,7 @@ def make_mesh(n_devices: int | None = None, backend: str | None = None,
 
 
 def make_mesh2(n_slices: int, chips_per_slice: int,
-               backend: str | None = None, device="cpu") -> Comm:
+               backend: str | None = None, device="cuda") -> Comm:
     """Two-level (slices x chips) chain for multi-host runs, flattened
     SLICE-MAJOR: rank k * chips_per_slice + c is chip c of slice k. A
     launcher numbers one host's ranks together, so the chain is the

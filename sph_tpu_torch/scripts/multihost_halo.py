@@ -13,18 +13,21 @@ into slices: only the chain order enters its collectives, so the run
 matches the single-device engine within 5e-5 with no halo or migration
 overflow.
 
-    python -m sph_tpu_torch.scripts.multihost_halo
+    python -m sph_tpu_torch.scripts.multihost_halo [--device cuda|cpu]
 
-(gloo ranks on the CPU, as sph_tpu's script runs its processes on CPU
-devices).
+The ranks are gloo ranks; on the card (the default) all four share
+``cuda:0``, and ``--device cpu`` runs them on the CPU, as sph_tpu's script
+runs its processes on CPU devices.
 """
 from __future__ import annotations
 
+import argparse
 import math
 import sys
 import time
 
 import numpy as np
+import torch
 
 from ..config import SimParams
 from ..core import fast as F
@@ -65,13 +68,25 @@ def _rank(comm):
     return dict(rank=chain.rank, pos=out.pos, diag=diag)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--device", default="cuda",
+                    help="the ranks' device (gloo ranks share one card) and "
+                         "the reference's")
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            print("multihost_halo: CUDA is not available (--device cpu runs "
+                  "the ranks on the CPU)", file=sys.stderr)
+            return 1
+        device = torch.device("cuda", device.index or 0)
     world = N_SLICES * PER_SLICE
     t0 = time.time()
-    res = run_ranks(_rank, world, "gloo", "cpu")
+    res = run_ranks(_rank, world, "gloo", str(device))
     params, scene, cfg = _scene()
     ref = F.make_fast_multi_step(params, scene.layout(), cfg, STEPS)(
-        *scene.device_state("cpu")).pos.numpy()
+        *scene.device_state(device)).pos.cpu().numpy()
     n_loc = scene.n_particles // world
     ok = True
     for r in res:
@@ -82,7 +97,7 @@ def main() -> int:
         good = err <= TOL and not any(ovf.values())
         ok &= good
         print(f"[rank {r['rank']}] {'OK' if good else 'FAIL'}: "
-              f"{N_SLICES} slices x {PER_SLICE} gloo ranks, "
+              f"{N_SLICES} slices x {PER_SLICE} gloo ranks on {device}, "
               f"{scene.n_particles} particles, {STEPS} steps across 2 "
               f"distributed resorts, {len(r['pos'])} rows, max |dpos| vs "
               f"single-device fast = {err:.2e}, overflow {ovf}", flush=True)

@@ -6,8 +6,10 @@ migration pads against sph_tpu's (bitwise, equal integers); the four
 collectives of ``Comm``; the scatters that drop out-of-range indices and
 the resort-time check of the tables' tile offsets; the halo engine in a
 world of one through ``Simulator`` (against
-``engine="fast"``, sph_tpu's halo tolerance 2e-5) and through the CLI."""
+``engine="fast"``, sph_tpu's halo tolerance 2e-5) and through the CLI, in a
+world of one and on 2 ranks joined from torchrun's environment."""
 import os
+import socket
 import subprocess
 import sys
 
@@ -38,6 +40,7 @@ from sph_tpu_torch.parallel.dryrun import sharded_rank
 from sph_tpu_torch.parallel.halo import _scatter, _scatter_add
 from sph_tpu_torch.parallel.launch import run_ranks
 from sph_tpu_torch.runtime import Simulator
+from sph_tpu_torch.scene import generate_liquid_box_scene
 
 import torch_ranks
 from test_torch_fastw import port_scene
@@ -141,7 +144,7 @@ def test_comm_collectives():
         np.testing.assert_array_equal(
             out["prev"], a[r + 1] if r < 2 else [-2.0, -3.0, -4.0])
         assert float(out["pmax"]) == 2.0
-    one = Comm()
+    one = Comm("cpu")
     assert (one.rank, one.world) == (0, 1)
     x = torch.arange(4.0)
     assert one.all_gather(x) is x and one.psum(x) is x
@@ -193,7 +196,7 @@ def test_halo_guards(monkeypatch):
     state, springs, membranes = scene.device_state("cpu")
     for distributed in (False, True):
         checked.clear()
-        make_halo_fast_multi_step(Comm(), params, scene.layout(), cfg, 5,
+        make_halo_fast_multi_step(Comm("cpu"), params, scene.layout(), cfg, 5,
                                   distributed_resort=distributed)(
             state, springs, membranes)
         assert checked == ["halo window tables"] * 3     # 3 resorts
@@ -240,20 +243,52 @@ def _simulator_halo(scene, params, fck, distributed, tmp_path):
     np.testing.assert_array_equal(again.get_position(), sim.get_position())
 
 
-def test_cli_run_halo(tmp_path):
-    """``python -m sph_tpu_torch run --engine halo --device cpu`` steps
-    and reports, in a world of one."""
-    # the subprocess keeps to this worker's share of the cores
-    env = dict(os.environ, PYTHONPATH=REPO,
-               OMP_NUM_THREADS=str(torch.get_num_threads()))
-    res = subprocess.run(
-        [sys.executable, "-m", "sph_tpu_torch", "run", "--scene", "box",
-         "--box", "6,6,40", "--fill", "0.5", "--steps", "4",
-         "--report-every", "2", "--engine", "halo", "--device", "cpu",
-         "--checkpoint", str(tmp_path / "ck.npz")],
-        capture_output=True, text=True, timeout=300, cwd=str(tmp_path),
-        env=env)
-    assert res.returncode == 0, res.stderr
-    assert "engine: halo" in res.stdout
-    assert "[[ step 4 ]]" in res.stdout
-    assert (tmp_path / "ck.npz").exists()
+@pytest.mark.parametrize("world", [1, 2])
+def test_cli_run_halo(tmp_path, world):
+    """``python -m sph_tpu_torch run --engine halo --device cpu`` steps and
+    reports, in a world of one and as 2 ranks joined from torchrun's
+    environment (RANK, WORLD_SIZE, MASTER_ADDR/PORT), each rank in a
+    directory of its own: only rank 0 prints and writes the checkpoint,
+    which holds every rank's rows after 4 steps."""
+    # the subprocesses keep to this worker's share of the cores
+    threads = max(1, torch.get_num_threads() // world)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS=str(threads))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for rank in range(world):
+        cwd = tmp_path / f"rank{rank}"
+        cwd.mkdir()
+        rank_env = env if world == 1 else dict(
+            env, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+            MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "sph_tpu_torch", "run", "--scene", "box",
+             "--box", "6,6,40", "--fill", "0.5", "--steps", "4",
+             "--report-every", "2", "--engine", "halo", "--device", "cpu",
+             "--checkpoint", "ck.npz"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=str(cwd), env=rank_env))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+    assert "engine: halo" in outs[0][0]
+    assert "[[ step 4 ]]" in outs[0][0]
+    ck = np.load(tmp_path / "rank0" / "ck.npz")
+    scene = generate_liquid_box_scene(
+        SimParams(x_max=6 * H, y_max=6 * H, z_max=40 * H),
+        fill_fraction=0.5)
+    assert int(ck["step"]) == 4 and np.isfinite(ck["pos"]).all()
+    assert len(ck["pos"]) >= scene.n_particles and len(ck["pos"]) % world == 0
+    np.testing.assert_array_equal(ck["ptype"][:scene.n_particles],
+                                  scene.ptype)
+    for rank in range(1, world):
+        assert outs[rank][0] == ""
+        assert list((tmp_path / f"rank{rank}").iterdir()) == []
