@@ -240,10 +240,25 @@ them to the kernels the card ran, as the profiler records them):
    from the replicated run's end state: the liquid passes kicked, see
    ``kicked``, on the rank with the most liquid rows; spring and membrane
    as they are, on the rank with the most elastic rows) against its plain
-   version as phase 3 holds a kernel; (d) the same under nccl where the
-   machine has a card a rank, else it prints ``nccl: not run``. The halo
-   paths' launches a step (summed over the ranks) join the kernels'
-   ``launches_per_step``.
+   version as phase 3 holds a kernel; (d) where the machine has 2 cards
+   or more, the engine on nccl ranks, a card each (4 ranks on 4 cards or
+   more, 2 on 2 or 3; on one card it prints ``nccl: not run (1 card)``):
+   (d0) the four collectives on rank-stamped tensors, each result and
+   each rank's card checked; (d1) ``dryrun_multichip(world, "nccl")``;
+   the full worm, the 2-worm scene and the fill-0.8 dam-break padded to
+   world x block, resort_every 5, a discarded warm-up run, then each
+   resort traced (compared with the fast engine on one card by (b)'s
+   rule, the dam-break within 1e-4 on every row, bitwise or not printed,
+   overflow 0, launches world x the fast engine's a step; the
+   collectives' host ms, each from a drained card to its end, and bytes
+   sent and received, a step, a resort and a call) and timed twice bare
+   (ms/step of the slowest rank) beside the fast engine's eager and
+   graphed ms/step; (c) on the worm's world-rank slabs; (d2)
+   ``multihost_halo --backend nccl`` (4 cards); (d3) a world-rank
+   torchrun of the CLI on the full worm (rank 0 prints, naming every
+   rank's card, and writes the checkpoint, held to the fast engine by
+   the worm's rule). The halo paths' launches a step (summed over the
+   ranks) join the kernels' ``launches_per_step``.
 
 Each phase prints its seconds. ``--only`` runs the named phases alone
 (small: 3-4, box: 5-6, rworm: 7, rworm_engine: 8, worm: 9-10, small_fast:
@@ -403,6 +418,9 @@ GRAPH_PROFILE = 60    # profiled steps, graphed and eager
 # over its 30 steps (the eager worm step makes ~444)
 GRAPH_MAX_LAUNCHES = 5
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaGraphLaunch")
+TAIL_KERNELS = 4096   # spin kernels closing a profiler session (``profile``)
+TAIL_CYCLES = 5000    # each ~2.5 us at the card's clock: ~10 ms in all
+SESSION_TAIL = []     # its graph, captured at the first session
 
 # ---- the simulator facade (phase 21) ----
 RUNTIME_STEPS = 45    # steps before the checkpoint, and after it
@@ -445,12 +463,17 @@ def box_edge(params) -> float:
     return max(params.x_max, params.y_max, params.z_max)
 
 
-def card_line() -> str:
+def card_lines() -> list[str]:
+    """``nvidia-smi``'s name and power limit of every card, a line each."""
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0].strip()
+    return [line.strip() for line in res.stdout.strip().splitlines()]
+
+
+def card_line() -> str:
+    return card_lines()[0]
 
 
 def scene_setup(scene, params, device, **cfg_kw):
@@ -976,15 +999,35 @@ def pair_records(kernels):
     return out
 
 
+def session_tail():
+    """A CUDA graph of ``TAIL_KERNELS`` spin kernels (``torch.cuda._sleep``)
+    that ``profile`` replays after the profiled steps: a session can lose
+    its last kernel records when it stops (phase 20 found the pair-kernel
+    records of a session's last 1 to ~4.5 steps missing, and only those,
+    in 3 of 9 whole-script runs), and then the records lost are the
+    tail's, which ``profile`` leaves out of every count and sum."""
+    if not SESSION_TAIL:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(TAIL_KERNELS):
+                torch.cuda._sleep(TAIL_CYCLES)
+        SESSION_TAIL.append(graph)
+    return SESSION_TAIL[0]
+
+
 def profile(sim, steps, card):
     """``steps`` main-path steps under torch.profiler: device busy share,
     the pair kernels' share of device time, top device and host ops, the
     kernel and graph launch calls a step. Returns the wall ms a step, (calls,
     host us) a step of each launch call (``LAUNCH_APIS``), the pair
     kernels' device records by launch key (``pair_records``), and the busy
-    ms a step and idle share, None where the profiler recorded no kernel."""
+    ms a step and idle share, None where the profiler recorded no kernel.
+    The session ends with ``session_tail``'s replay, left out of all of
+    these: its kernels, and its graph launch call (the session's last)
+    with that call's host time."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
+    tail = session_tail()
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
@@ -992,9 +1035,12 @@ def profile(sim, steps, card):
         sim.step(steps)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        tail.replay()
+        torch.cuda.synchronize()
     events = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in events if e.device_type == cuda]
+    kernels = [e for e in events
+               if e.device_type == cuda and "spin_kernel" not in e.key]
     host = [e for e in events if e.device_type != cuda]
     dev_us = sum(e.self_device_time_total for e in kernels)
     pair_us = sum(e.self_device_time_total for e in kernels
@@ -1003,10 +1049,16 @@ def profile(sim, steps, card):
           f"ms/step (profiler on) [{card}]", flush=True)
     out = dict(wall_ms=wall_us / steps / 1e3, busy_ms=None, idle=None,
                pairs=pair_records({e.key: e.count for e in kernels}))
+    tail_launch = max((e for e in prof.events()
+                       if e.name.startswith("cudaGraphLaunch")),
+                      key=lambda e: e.time_range.start, default=None)
     for api in LAUNCH_APIS:
         calls = [e for e in host if e.key.startswith(api)]
-        out[api] = (sum(e.count for e in calls) / steps,
-                    sum(e.self_cpu_time_total for e in calls) / steps)
+        tail = ((1, tail_launch.self_cpu_time_total)
+                if api == "cudaGraphLaunch" and tail_launch else (0, 0.0))
+        out[api] = ((sum(e.count for e in calls) - tail[0]) / steps,
+                    (sum(e.self_cpu_time_total for e in calls) - tail[1])
+                    / steps)
         print(f"  {api}: {out[api][0]:.2f} calls/step, {out[api][1]:.1f} "
               "us/step of host", flush=True)
     if dev_us == 0:
@@ -2870,16 +2922,14 @@ HALO_LIQUID = ("density", "rho_star", "viscsurf", "paccel", "boundary")
 HALO_ELASTIC = ("spring", "membrane")
 
 
-def halo_worm(world):
-    """(params, the full worm padded to ``world * block``, its fast config
-    at resort_every ``HALO_PERIOD``, the Simulator's measured halo_pad and
+def halo_scene(scene, params, world):
+    """(``scene`` padded to ``world * block``, its fast config at
+    resort_every ``HALO_PERIOD``, the Simulator's measured halo_pad and
     mig_cap clamped to the rows of one rank)."""
     from sph_tpu_torch.parallel import (measure_halo_pad,
                                         measure_migration_pad,
                                         pad_scene_to_devices)
 
-    params = SimParams()
-    scene = generate_worm_scene(params)
     kw = dict(resort_every=HALO_PERIOD, block_multiple=math.lcm(8, world))
     block = F.compute_fast_config(scene.pos, params, **kw).block
     scene = pad_scene_to_devices(scene, world * block)
@@ -2888,7 +2938,7 @@ def halo_worm(world):
     pads = dict(
         halo_pad=min(measure_halo_pad(scene.pos, params, cfg), per_dev),
         mig_cap=min(measure_migration_pad(scene.pos, params, cfg), per_dev))
-    return params, scene, cfg, pads
+    return scene, cfg, pads
 
 
 def own_rows(scene, params, cfg, pos, rank, world):
@@ -2940,27 +2990,108 @@ def record_halo_rank(comm, scene, params, cfg, pads, start, names):
             else calls[k] for k in names}
 
 
-def timed_comm(comm):
-    """``comm`` with its four operations timed: each adds its host seconds,
-    from a drained device to its return, to ``comm.seconds`` and one to
-    ``comm.calls`` (so the wait for another rank's share of the card is in
-    them)."""
-    comm.seconds, comm.calls = 0.0, 0
+def record_end(comm, scene, params, cfg, pads, end):
+    """The pair passes' inputs of one halo step from ``end`` (a gathered
+    state) on the ranks ``record_halo_rank`` picks: spring and membrane
+    from ``end`` as it is, the liquid passes from ``end`` kicked (see
+    ``kicked``)."""
+    start = {k: getattr(end, k) for k in ("pos", "vel", "muscle_activation",
+                                           "step")}
+    kick = kicked(end, rest_gap=REST_GAP * params.h)
+    kstart = dict(start, pos=kick.pos, vel=kick.vel)
+    recorded = {}
+    for names, s in ((HALO_ELASTIC, start), (HALO_LIQUID, kstart)):
+        recorded.update(record_halo_rank(comm, scene, params, cfg, pads,
+                                         {k: v.cpu() for k, v in s.items()},
+                                         names))
+    return recorded
 
-    def timed(op):
-        def call(*args, **kw):
+
+def timed_comm(comm, once_rows=None):
+    """A copy of ``comm`` whose four operations are timed and counted.
+    Each call adds its host seconds, from a drained device to its return
+    (under nccl, which only enqueues, to its end on the device: so the
+    wait for a peer is in them), to ``seconds`` and one to ``calls``, and
+    logs (where, op, seconds, bytes sent, bytes received) in ``log``.
+    ``where`` is the copy's ``where`` at the call ("resort" until
+    ``mark_steps`` moves it), or "call" for an all-gather of ``once_rows``
+    rows or more (the distributed resort's entry sort and exit unsort,
+    once a call). Bytes, as ``sph_tpu``'s ``scripts/resort_bytes.py``
+    counts them: a neighbour send's tensor where the neighbour exists,
+    (ranks - 1) x the rank's share of an all-gather, a psum's tensor
+    once."""
+    import copy
+
+    t = copy.copy(comm)
+    t.seconds, t.calls, t.log, t.where = 0.0, 0, [], "resort"
+    nccl = comm.backend == "nccl"
+    up, down = comm.rank + 1 < comm.world, comm.rank > 0
+
+    def nbytes(name, a):
+        b = a.numel() * a.element_size()
+        return {"all_gather": ((comm.world - 1) * b,) * 2,
+                "psum": (b, b),
+                "send_next": (b * up, b * down),
+                "send_prev": (b * down, b * up)}[name]
+
+    def timed(name):
+        op = getattr(comm, name)
+
+        def call(a, *args, **kw):
             if comm.device.type == "cuda":
                 torch.cuda.synchronize(comm.device)
             t0 = time.perf_counter()
-            out = op(*args, **kw)
-            comm.seconds += time.perf_counter() - t0
-            comm.calls += 1
+            out = op(a, *args, **kw)
+            if nccl:
+                torch.cuda.synchronize(comm.device)
+            dt = time.perf_counter() - t0
+            t.seconds += dt
+            t.calls += 1
+            once = (once_rows is not None and name == "all_gather"
+                    and a.dim() > 0 and a.shape[0] >= once_rows)
+            t.log.append(dict(where="call" if once else t.where, op=name,
+                              seconds=dt, bytes=nbytes(name, a)))
             return out
         return call
 
     for name in ("all_gather", "psum", "send_next", "send_prev"):
-        setattr(comm, name, timed(getattr(comm, name)))
-    return comm
+        setattr(t, name, timed(name))
+    return t
+
+
+def mark_steps(run, t):
+    """Label ``t``'s log (a ``timed_comm``) by the halo steps of ``run``: a
+    step's exchanges, from its first (positions and velocities: the two
+    calls just before its density pass) to its last (before its boundary
+    pass), are "step"; the rest stays "resort" (the resort and the
+    period's drift max)."""
+    density, boundary = run.passes["density"], run.passes["boundary"]
+
+    def dens(*args):
+        for e in t.log[-2:]:
+            e["where"] = "step"
+        t.where = "step"
+        return density(*args)
+
+    def bnd(*args):
+        t.where = "resort"
+        return boundary(*args)
+
+    run.passes.update(density=dens, boundary=bnd)
+
+
+def comm_sums(t):
+    """``t.log`` summed by where: {where: dict(seconds, calls, sent,
+    recv)}."""
+    out = {}
+    for e in t.log:
+        s = out.setdefault(e["where"], dict(seconds=0.0, calls=0, sent=0,
+                                            recv=0))
+        s["seconds"] += e["seconds"]
+        s["calls"] += 1
+        s["sent"] += e["bytes"][0]
+        s["recv"] += e["bytes"][1]
+    return out
 
 
 def halo_worm_rank(comm, scene, params, cfg, pads, n_steps):
@@ -2988,16 +3119,8 @@ def halo_worm_rank(comm, scene, params, cfg, pads, n_steps):
         out.append(rec)
         if end is None:
             end = full
-    start = {k: getattr(end, k) for k in ("pos", "vel", "muscle_activation",
-                                           "step")}
-    kick = kicked(end, rest_gap=REST_GAP * params.h)
-    kstart = dict(start, pos=kick.pos, vel=kick.vel)
-    recorded = {}
-    for names, s in ((HALO_ELASTIC, start), (HALO_LIQUID, kstart)):
-        recorded.update(record_halo_rank(comm, scene, params, cfg, pads,
-                                         {k: v.cpu() for k, v in s.items()},
-                                         names))
-    return dict(runs=out, recorded=recorded)
+    return dict(runs=out,
+                recorded=record_end(comm, scene, params, cfg, pads, end))
 
 
 def halo_compare(ref_pos, pos, near, label):
@@ -3008,11 +3131,54 @@ def halo_compare(ref_pos, pos, near, label):
     n_over = int((d > HALO_TOL).sum())
     print(f"  {label}: max |dpos| {float(d.max()):.3e} ({n_over} rows "
           f"beyond {HALO_TOL:g}), {far_max:.3e} beyond 3 h of the "
-          f"{int(near.sum())} rows near coincident pairs", flush=True)
+          f"{int(near.sum())} rows near coincident pairs; bitwise "
+          f"{bool(np.array_equal(pos, ref_pos))}", flush=True)
     check(far_max <= HALO_TOL and float(d.max()) <= HALO_NEAR_TOL,
           f"{label}: max |dpos| {float(d.max())}, {far_max} away from the "
           "near-coincident pairs")
     return float(d.max()), far_max
+
+
+def fast_reference(scene, params, cfg, n_steps, dev):
+    """The fast engine on one card from the scene's start: (its positions
+    after ``n_steps``, {cuda_graph: ms/step of a second run})."""
+    state, springs, membranes = scene.device_state(dev)
+    timings = {}
+    for graph in (False, True):
+        run = F.make_fast_multi_step(params, scene.layout(), cfg, n_steps,
+                                     cuda_graph=graph)
+        ref = run(state, springs, membranes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(state, springs, membranes)
+        torch.cuda.synchronize()
+        timings[graph] = (time.perf_counter() - t0) * 1e3 / n_steps
+    return ref.pos.cpu().numpy(), timings
+
+
+def halo_launches(res, i, per_step, n_steps, world, label):
+    """Run ``i``'s pair-kernel launches summed over the ranks, held to
+    ``world`` x the fast engine's a step; returns them a step."""
+    total = {}
+    for r in res:
+        for k, v in r["runs"][i]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    for kind, per in per_step.items():
+        check(total.get(kind, 0) == per * n_steps * world,
+              f"{label} {kind}: {total.get(kind, 0)} launches in "
+              f"{n_steps} steps on {world} ranks, expected "
+              f"{per * n_steps * world}")
+    check(set(total) == set(per_step), f"{label}: launched {sorted(total)}")
+    return {k: v / n_steps for k, v in total.items()}
+
+
+def halo_run_checks(run, n_steps, label):
+    """A halo run's overflow counts 0, its step count, finite positions."""
+    ovf = {k: int(v) for k, v in run["diag"].items()
+           if k.endswith("overflow")}
+    check(not any(ovf.values()), f"{label}: overflow {ovf}")
+    check(int(run["step"]) == n_steps, f"{label}: step")
+    check(np.isfinite(run["pos"]).all(), f"{label}: not finite")
 
 
 def halo_worm_checks(backend, devices, card):
@@ -3022,7 +3188,9 @@ def halo_worm_checks(backend, devices, card):
     from sph_tpu_torch.parallel.comm import Comm
     from sph_tpu_torch.parallel.launch import run_ranks
 
-    params, scene, cfg, pads = halo_worm(HALO_WORLD)
+    params = SimParams()
+    scene, cfg, pads = halo_scene(generate_worm_scene(params), params,
+                                  HALO_WORLD)
     print(f"halo worm: {scene.counts}, n {scene.n_particles}, cfg {cfg}, "
           f"{pads}, {HALO_WORLD} {backend} ranks on {devices}", flush=True)
     n_steps = 2 * HALO_PERIOD
@@ -3035,39 +3203,15 @@ def halo_worm_checks(backend, devices, card):
     dev = torch.device(HALO_DEVICE)
     state, springs, membranes = scene.device_state(dev)
     near = worm_near_coincident(scene, params)
-    timings = {}
-    for graph in (False, True):
-        run = F.make_fast_multi_step(params, scene.layout(), cfg, n_steps,
-                                     cuda_graph=graph)
-        ref = run(state, springs, membranes)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(state, springs, membranes)
-        torch.cuda.synchronize()
-        timings[graph] = (time.perf_counter() - t0) * 1e3 / n_steps
-    ref_pos = ref.pos.cpu().numpy()
+    ref_pos, timings = fast_reference(scene, params, cfg, n_steps, dev)
     per_step = {}
     for i, label in enumerate(("replicated", "distributed")):
         run = res[0]["runs"][i]
-        ovf = {k: int(v) for k, v in run["diag"].items()
-               if k.endswith("overflow")}
-        check(not any(ovf.values()), f"halo {label}: overflow {ovf}")
-        check(int(run["step"]) == n_steps, f"halo {label}: step")
-        check(np.isfinite(run["pos"]).all(), f"halo {label}: not finite")
+        halo_run_checks(run, n_steps, f"halo {label}")
         halo_compare(ref_pos, run["pos"], near,
                      f"halo {label} vs fast, {n_steps} steps")
-        total = {}
-        for r in res:
-            for k, v in r["runs"][i]["launches"].items():
-                total[k] = total.get(k, 0) + v
-        for kind, per in PER_STEP_FAST_WORM.items():
-            check(total.get(kind, 0) == per * n_steps * HALO_WORLD,
-                  f"halo {label} {kind}: {total.get(kind, 0)} launches in "
-                  f"{n_steps} steps on {HALO_WORLD} ranks, expected "
-                  f"{per * n_steps * HALO_WORLD}")
-        check(set(total) == set(PER_STEP_FAST_WORM),
-              f"halo {label}: launched {sorted(total)}")
-        per_step[label] = {k: v / n_steps for k, v in total.items()}
+        per_step[label] = halo_launches(res, i, PER_STEP_FAST_WORM, n_steps,
+                                        HALO_WORLD, f"halo {label}")
         timed = [r["runs"][i + 2] for r in res]
         ms = max(t["seconds"] for t in timed) * 1e3 / n_steps
         first = max(r["runs"][i]["seconds"] for r in res) * 1e3 / n_steps
@@ -3080,7 +3224,7 @@ def halo_worm_checks(backend, devices, card):
               f"rank's share of the card included) "
               f"{', '.join(f'{c:.4f}' for c in comm_ms)} ms/step by rank, "
               f"{timed[0]['comm_calls'] / n_steps:.1f} calls a step; "
-              f"launches {total}, window drift "
+              f"launches {per_step[label]} a step, window drift "
               f"{float(run['diag']['window_drift']):.4f} [{card}]",
               flush=True)
     # the halo engine in a world of one on the same card: its own eager
@@ -3097,7 +3241,13 @@ def halo_worm_checks(backend, devices, card):
           f"ms/step eager, {timings[True]:.4f} ms/step graphed; the halo "
           f"engine in a world of one (replicated resort): {one_ms:.4f} "
           f"ms/step; each over {n_steps} steps [{card}]", flush=True)
+    halo_kernels(res, params, dev, "halo")
+    return per_step
 
+
+def halo_kernels(res, params, dev, label):
+    """Phase 24 (c): each pair kernel against its plain version on the
+    slab inputs a rank recorded (``record_end``)."""
     calls = {}
     for r in res:
         for name, (p, *rest) in r["recorded"].items():
@@ -3106,10 +3256,9 @@ def halo_worm_checks(backend, devices, card):
                 if isinstance(a, tuple) else torch.as_tensor(a, device=dev)
                 for a in rest))
     check(set(calls) == set(HALO_LIQUID + HALO_ELASTIC),
-          f"halo: recorded {sorted(calls)}")
-    elastic_input_counts(params, calls, "halo", names=HALO_ELASTIC)
-    compare(calls, "halo", box_edge(params))
-    return per_step
+          f"{label}: recorded {sorted(calls)}")
+    elastic_input_counts(params, calls, label, names=HALO_ELASTIC)
+    compare(calls, label, box_edge(params))
 
 
 def worm_near_coincident(scene, params):
@@ -3126,9 +3275,319 @@ def worm_near_coincident(scene, params):
     return near
 
 
+# ---- phase 24 (d): nccl, a card a rank ----
+NCCL_DEADLINE_S = 600    # a run_ranks call of (d)
+NCCL_SCENES = ("worm", "worm2", "dam")
+
+
+def nccl_world():
+    """(d)'s nccl ranks on this machine: 4 where it has 4 cards or more, 2
+    on 2 or 3, 0 (not run) on one."""
+    n = torch.cuda.device_count()
+    return 4 if n >= 4 else 2 if n >= 2 else 0
+
+
+def comm_check_rank(comm):
+    """Rank function: the four collectives on rank-stamped tensors (the
+    halo engine's dtypes and shapes: f32 rows, i64 counts, 0-d sums), and
+    the rank's card."""
+    r, dev = comm.rank, comm.device
+    a = torch.arange(3, dtype=torch.float32, device=dev) + 10 * r
+    return dict(
+        rank=r, world=comm.world,
+        card=torch.cuda.current_device() if dev.type == "cuda" else None,
+        gather=comm.all_gather(a[None]),
+        gather_int=comm.all_gather(torch.full((2, 2), r, dtype=torch.int64,
+                                              device=dev)),
+        psum=comm.psum(a), psum0=comm.psum(torch.tensor(r + 1, device=dev)),
+        next=comm.send_next(a, -1.0),
+        prev=comm.send_prev(a, torch.full((3,), -2.0, device=dev)),
+        pmax=comm.pmax(torch.tensor(float(r), device=dev)))
+
+
+def nccl_comm_check(world, devices):
+    """(d0): ``comm_check_rank`` on ``world`` nccl ranks, every result
+    held to its value."""
+    from sph_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    res = run_ranks(comm_check_rank, world, "nccl", devices,
+                    timeout_s=NCCL_DEADLINE_S)
+    stamp = [np.arange(3, dtype=np.float32) + 10 * r for r in range(world)]
+    for r, out in enumerate(res):
+        check(out["rank"] == r and out["world"] == world
+              and out["card"] == r, f"nccl rank {r}: {out}")
+        check(np.array_equal(out["gather"], np.stack(stamp))
+              and np.array_equal(out["gather_int"], np.repeat(
+                  np.arange(world), 2)[:, None].repeat(2, 1))
+              and np.array_equal(out["psum"], sum(stamp))
+              and int(out["psum0"]) == world * (world + 1) // 2
+              and np.array_equal(out["next"], stamp[r - 1] if r
+                                 else np.full(3, -1.0, np.float32))
+              and np.array_equal(out["prev"], stamp[r + 1]
+                                 if r + 1 < world
+                                 else np.full(3, -2.0, np.float32))
+              and float(out["pmax"]) == world - 1,
+              f"nccl rank {r}: collectives {out}")
+    print(f"halo (d0): the four collectives on {world} nccl ranks, cards "
+          f"{[out['card'] for out in res]}: as expected, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def halo_cards_scene(name):
+    """(params, scene, the fast engine's launches a step) of (d)'s scene
+    ``name``: the full worm, the 2-worm stress scene, the dam-break."""
+    base = SimParams()
+    if name == "worm":
+        return base, generate_worm_scene(base), PER_STEP_FAST_WORM
+    if name == "worm2":
+        return (generate_multi_worm_params(N_WORMS, base),
+                generate_multi_worm_scene(N_WORMS, base), PER_STEP_FAST_WORM)
+    return (base, generate_liquid_box_scene(base, fill_fraction=0.8),
+            PER_STEP_DAM)
+
+
+def halo_cards_rank(comm, scene, params, cfg, pads, n_steps, record):
+    """Rank function of (d): one discarded run (NCCL forms a pair's
+    point-to-point connection at its first exchange), then each resort
+    three times from the scene's start, the ranks starting together:
+    first under ``timed_comm`` (compared, its launches counted, its
+    collectives' host seconds and bytes by where), then twice bare
+    (timed). With ``record``, the pair passes' inputs of one more step
+    (``record_end``)."""
+    from sph_tpu_torch.parallel import make_halo_fast_multi_step, shard_state
+    from sph_tpu_torch.parallel.dryrun import _timed
+    from sph_tpu_torch.parallel.sharded import gather_state
+
+    state, springs, membranes = scene.device_state(comm.device)
+    state_l = shard_state(state, comm)
+    n_loc = scene.n_particles // comm.world
+    make_halo_fast_multi_step(comm, params, scene.layout(), cfg, n_steps,
+                              **pads)(state_l, springs, membranes)
+    runs, end = [], None
+    for distributed in (False, True):
+        traced = timed_comm(comm, n_loc if distributed else None)
+        for c in (traced, comm, comm):
+            run = make_halo_fast_multi_step(
+                c, params, scene.layout(), cfg, n_steps,
+                distributed_resort=distributed, **pads)
+            if c is traced:
+                mark_steps(run, c)
+            comm.psum(torch.zeros(1, device=comm.device))
+            before = dict(pk.LAUNCHES)
+            (res, diag), secs = _timed(
+                comm, lambda: run(state_l, springs, membranes))
+            rec = dict(diag=diag, seconds=secs, launches={
+                k: v - before[k] for k, v in pk.LAUNCHES.items()
+                if v != before[k]})
+            if c is traced:
+                rec["comm"] = comm_sums(c)
+                full = gather_state(res, comm)
+                if comm.rank == 0:
+                    rec.update(pos=full.pos, step=full.step)
+                end = full if end is None else end
+            runs.append(rec)
+    recorded = (record_end(comm, scene, params, cfg, pads, end) if record
+                else {})
+    return dict(runs=runs, recorded=recorded)
+
+
+def comm_report(res, i, n_steps, world):
+    """Run ``i``'s collectives from every rank's ``comm_sums``: host ms
+    and bytes sent and received a step, a resort and (the distributed
+    resort's entry and exit) a call, each the largest over the ranks."""
+    n_resorts = n_steps // HALO_PERIOD
+    per = dict(step=n_steps, resort=n_resorts, call=1)
+    out = {}
+    for where, div in per.items():
+        sums = [r["runs"][i]["comm"].get(where) for r in res]
+        if not any(sums):
+            continue
+        z = dict(seconds=0.0, calls=0, sent=0, recv=0)
+        sums = [s or z for s in sums]
+        out[where] = dict(
+            ms=[s["seconds"] * 1e3 / div for s in sums],
+            calls=max(s["calls"] for s in sums) / div,
+            sent_mb=max(s["sent"] for s in sums) / div / 1e6,
+            recv_mb=max(s["recv"] for s in sums) / div / 1e6)
+    return out
+
+
+def halo_cards_checks(name, world, devices, card):
+    """(d) on scene ``name`` at ``world`` nccl ranks: both resorts against
+    the fast engine on one card, launches, times and traffic; the pair
+    kernels on the worm's slab inputs. Returns the launches a step of
+    each resort summed over the ranks, the padded scene, the reference
+    positions, the near-coincident rows and the replicated run's
+    positions."""
+    from sph_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    params, scene, per_step = halo_cards_scene(name)
+    scene, cfg, pads = halo_scene(scene, params, world)
+    label = f"halo nccl {name}"
+    print(f"{label}: {scene.counts}, n {scene.n_particles}, generated in "
+          f"{time.perf_counter() - t0:.1f} s, cfg {cfg}, {pads}, {world} "
+          f"nccl ranks on {devices}", flush=True)
+    n_steps = 2 * HALO_PERIOD
+    t0 = time.perf_counter()
+    res = run_ranks(halo_cards_rank, world, "nccl", devices, scene, params,
+                    cfg, pads, n_steps, name == "worm",
+                    timeout_s=NCCL_DEADLINE_S)
+    print(f"{label}: ranks done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    dev = torch.device(HALO_DEVICE)
+    near = (worm_near_coincident(scene, params) if name != "dam"
+            else np.zeros(scene.n_particles, bool))
+    ref_pos, timings = fast_reference(scene, params, cfg, n_steps, dev)
+    per_resort = {}
+    for i, resort in enumerate(("replicated", "distributed")):
+        run = res[0]["runs"][3 * i]
+        halo_run_checks(run, n_steps, f"{label} {resort}")
+        halo_compare(ref_pos, run["pos"], near,
+                     f"{label} {resort} vs fast, {n_steps} steps")
+        per_resort[resort] = halo_launches(
+            res, 3 * i, per_step, n_steps, world, f"{label} {resort}")
+        ms = [max(r["runs"][3 * i + j]["seconds"] for r in res)
+              * 1e3 / n_steps for j in (1, 2)]
+        traced = max(r["runs"][3 * i]["seconds"] for r in res) \
+            * 1e3 / n_steps
+        traffic = comm_report(res, 3 * i, n_steps, world)
+        print(f"{label} {resort}: {ms[0]:.4f} ms/step over {n_steps} steps "
+              f"on {world} cards (2 periods, a resort each; the slowest "
+              f"rank's, after a warm-up run; the next run: {ms[1]:.4f}; the "
+              f"run compared above, with every collective drained: "
+              f"{traced:.4f}); launches "
+              f"{per_resort[resort]} a step over the ranks; window drift "
+              f"{float(run['diag']['window_drift']):.4f} [{world} x {card}]",
+              flush=True)
+        for where, v in traffic.items():
+            print(f"  collectives a {where}: "
+                  f"{', '.join(f'{m:.4f}' for m in v['ms'])} ms by rank "
+                  f"(host clock, device drained before and after each), "
+                  f"{v['calls']:.1f} calls; sent {v['sent_mb']:.4f} MB, "
+                  f"received {v['recv_mb']:.4f} MB (the busiest rank)",
+                  flush=True)
+    print(f"{label}: the fast engine, same config, one card: "
+          f"{timings[False]:.4f} ms/step eager, {timings[True]:.4f} ms/step "
+          f"graphed, over {n_steps} steps [{card}]", flush=True)
+    if name == "worm":
+        halo_kernels(res, params, dev, f"halo nccl {world} ranks")
+    return dict(launches=per_resort, scene=scene, ref=ref_pos, near=near,
+                pos=res[0]["runs"][0]["pos"])
+
+
+def run_group(cmd, timeout_s, **kw):
+    """``subprocess.run(cmd)`` in a session of its own, the whole session
+    killed if it outlives ``timeout_s`` (torchrun's and run_ranks's
+    children too)."""
+    import signal
+
+    p = subprocess.Popen(cmd, start_new_session=True, text=True,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, **kw)
+    try:
+        out, err = p.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, err = p.communicate()
+        err += f"\nkilled after {timeout_s} s"
+    return subprocess.CompletedProcess(cmd, p.returncode, out, err)
+
+
+def nccl_scripts(world, worm):
+    """(d2, d3): ``multihost_halo --backend nccl`` (2 x 2, four cards)
+    and a ``world``-rank torchrun of the CLI on the full worm, rank 0
+    printing and writing the checkpoint, whose positions are held to the
+    fast engine's by the worm's rule. ``worm``: (d)'s worm results
+    (``halo_cards_checks``)."""
+    import shutil
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=REPO)
+    if world == 4:
+        t0 = time.perf_counter()
+        res = run_group([sys.executable, "-m",
+                         "sph_tpu_torch.scripts.multihost_halo",
+                         "--backend", "nccl"], CLI_TIMEOUT_S, cwd=REPO,
+                        env=env)
+        tail = res.stdout.strip().splitlines()
+        print(f"halo (d2): multihost_halo --backend nccl: exit "
+              f"{res.returncode} in {time.perf_counter() - t0:.1f} s; "
+              + " | ".join(tail), flush=True)
+        check(res.returncode == 0,
+              f"multihost_halo --backend nccl: {res.stderr[-2000:]}")
+    else:
+        print(f"halo (d2): multihost_halo --backend nccl: not run ({world} "
+              "cards; it takes 4)", flush=True)
+    n_steps = 2 * HALO_PERIOD        # the steps of (d)'s worm runs
+    tmp = tempfile.mkdtemp(prefix="sph_nccl_cli_")
+    try:
+        t0 = time.perf_counter()
+        res = run_group(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(world), "-m", "sph_tpu_torch", "run",
+             "--scene", "worm", "--steps", str(n_steps),
+             "--resort-every", str(HALO_PERIOD), "--report-every",
+             str(HALO_PERIOD), "--engine", "halo", "--backend", "nccl",
+             "--checkpoint", "ck.npz"], CLI_TIMEOUT_S, cwd=tmp, env=env)
+        out = res.stdout
+        print(f"halo (d3): torchrun --nproc-per-node {world} -m "
+              f"sph_tpu_torch run --engine halo --backend nccl: exit "
+              f"{res.returncode} in {time.perf_counter() - t0:.1f} s; "
+              + " | ".join(out.strip().splitlines()), flush=True)
+        check(res.returncode == 0, f"torchrun cli: {res.stderr[-3000:]}")
+        cards = str([f"cuda:{i}" for i in range(world)])
+        check("engine: halo" in out
+              and f"ranks: {world} nccl ranks on {cards}" in out
+              and f"[[ step {n_steps} ]]" in out,
+              f"torchrun cli: {out[-2000:]}")
+        check(out.count("engine: halo") == 1, "torchrun cli: more than "
+              "one rank printed")
+        ck = np.load(os.path.join(tmp, "ck.npz"))
+        n = worm["scene"].n_particles
+        check(int(ck["step"]) == n_steps and len(ck["pos"]) == n
+              and np.array_equal(ck["ptype"], worm["scene"].ptype),
+              "torchrun cli: the checkpoint's step, rows or types")
+        halo_compare(worm["ref"], ck["pos"], worm["near"],
+                     f"torchrun cli checkpoint vs fast, {n_steps} steps")
+        print(f"  bitwise the replicated nccl run's: "
+              f"{bool(np.array_equal(ck['pos'], worm['pos']))}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def halo_nccl(world, card):
+    """Phase 24 (d) on ``world`` nccl ranks, a card each: the collectives,
+    the dry run, the three scenes, the 2 x 2 chain and the torchrun CLI.
+    Returns the scenes' launches a step by path."""
+    from sph_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    print(f"halo (d): {world} nccl ranks, a card each; the cards: "
+          + " | ".join(card_lines()), flush=True)
+    devices = [f"cuda:{i}" for i in range(world)]
+    nccl_comm_check(world, devices)
+    t0 = time.perf_counter()
+    out = dryrun_multichip(world, "nccl", "cuda")
+    print(f"halo (d1): dryrun_multichip({world}, nccl, cuda) in "
+          f"{time.perf_counter() - t0:.1f} s: errors {out['sharded_err']:.3e}"
+          f" / {out['halo_err']:.3e} / {out['distributed_err']:.3e}",
+          flush=True)
+    launches = {}
+    for name in NCCL_SCENES:
+        out = halo_cards_checks(name, world, devices, card)
+        for resort, counts in out.pop("launches").items():
+            launches[f"halo_nccl{world}_{name}_{resort}"] = counts
+        if name == "worm":
+            worm = out
+        del out
+    nccl_scripts(world, worm)
+    return launches
+
+
 def halo_phase(card, profile_steps):
-    # 24. the multi-GPU halo engine on ranks that share the card; the
-    # parallel package (torch.distributed, torch.multiprocessing) is
+    # 24. the multi-GPU halo engine on ranks that share the card, then
+    # (d) under nccl on a card a rank where the machine has two or more;
+    # the parallel package (torch.distributed, torch.multiprocessing) is
     # imported here, so phases 1-23 run without it
     from sph_tpu_torch.parallel.dryrun import dryrun_multichip
 
@@ -3146,16 +3605,15 @@ def halo_phase(card, profile_steps):
           f"{time.perf_counter() - t0:.1f} s, the halo runs' launches over "
           f"the ranks {total}", flush=True)
     per_step = halo_worm_checks("gloo", HALO_DEVICE, card)
-    if torch.cuda.device_count() >= HALO_WORLD:
-        devices = [f"cuda:{i}" for i in range(HALO_WORLD)]
-        dryrun_multichip(HALO_WORLD, "nccl", "cuda")
-        halo_worm_checks("nccl", devices, card)
+    launches = {"halo": per_step["replicated"],
+                "halo_distributed": per_step["distributed"]}
+    world = nccl_world()
+    if world:
+        launches.update(halo_nccl(world, card))
     else:
         print(f"nccl: not run ({torch.cuda.device_count()} card)",
               flush=True)
-    return dict(kernels={}, launches={
-        "halo": per_step["replicated"],
-        "halo_distributed": per_step["distributed"]})
+    return dict(kernels={}, launches=launches)
 
 
 # name -> phase(card, profile_steps), in running order; a phase that runs a

@@ -22,8 +22,10 @@ Rendering (``--render-every``, ``replay``) needs matplotlib and PIL.
 under ``torchrun --nproc-per-node N -m sph_tpu_torch run --engine halo``
 each rank joins the group from torchrun's environment (``--backend``, gloo
 by default: ranks may share a card; nccl needs a card a rank, rank r on
-``cuda:LOCAL_RANK``), and rank 0 prints and writes the files. Without
-torchrun it is a world of one.
+``cuda:LOCAL_RANK``), and rank 0 prints (its ``ranks:`` line names every
+rank's device) and writes the files. A collective that waits longer than
+the process group's timeout (``parallel.launch.GROUP_TIMEOUT``) fails its
+rank. Without torchrun it is a world of one.
 """
 from __future__ import annotations
 
@@ -66,17 +68,33 @@ def _join_ranks(args):
     import torch
     import torch.distributed as dist
 
+    from .parallel.launch import group_options
+
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if args.engine != "halo" or world == 1 or dist.is_initialized():
         rank = dist.get_rank() if dist.is_initialized() else 0
         return args.device, rank, False
     device = args.device
     if device == "cuda":
-        local = int(os.environ.get("LOCAL_RANK", "0"))
-        device = f"cuda:{local % max(1, torch.cuda.device_count())}"
+        device = rank_device(args.backend,
+                             int(os.environ.get("LOCAL_RANK", "0")),
+                             torch.cuda.device_count())
         torch.cuda.set_device(device)
-    dist.init_process_group(args.backend, init_method="env://")
+    dist.init_process_group(args.backend, init_method="env://",
+                            **group_options(args.backend, device))
     return device, dist.get_rank(), True
+
+
+def rank_device(backend: str, local_rank: int, n_cards: int) -> str:
+    """A torchrun rank's card: ``cuda:LOCAL_RANK``. gloo ranks beyond the
+    cards share them in turn; nccl needs a card a rank and raises."""
+    if n_cards < 1:
+        raise RuntimeError("--device cuda, but this machine has no card")
+    if backend == "nccl" and local_rank >= n_cards:
+        raise ValueError(f"nccl needs a card a rank: local rank "
+                         f"{local_rank} on a machine with {n_cards} "
+                         "card(s); use gloo to share them")
+    return f"cuda:{local_rank % n_cards}"
 
 
 def cmd_run(args) -> int:
@@ -100,6 +118,12 @@ def cmd_run(args) -> int:
         log=say if args.verbose else None,
     )
     say(f"engine: {sim.engine}")
+    if joined:
+        import torch.distributed as dist
+
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, str(device))
+        say(f"ranks: {len(every)} {args.backend} ranks on {every}")
     if args.restore:
         sim.restore(args.restore)
         say(f"restored from {args.restore} at step {sim.step_count}")

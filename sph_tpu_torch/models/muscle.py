@@ -59,9 +59,10 @@ def next_activation(step: torch.Tensor) -> torch.Tensor:
     return waves_signal(step.to(torch.float32))
 
 
-def schedule(n_steps: int, device="cpu") -> torch.Tensor:
-    """Precomputed [n_steps, MUSCLE_COUNT] activation table: row k is the
-    activation used by step k (row 0 is all zeros)."""
+def schedule(n_steps: int, device="cuda") -> torch.Tensor:
+    """Precomputed [n_steps, MUSCLE_COUNT] activation table on ``device``
+    (the card unless the caller names the CPU): row k is the activation
+    used by step k (row 0 is all zeros)."""
     t = torch.arange(-1, n_steps - 1, dtype=torch.float32, device=device)
     table = waves_signal(t)
     table[0] = 0.0

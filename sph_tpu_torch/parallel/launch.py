@@ -10,7 +10,14 @@ over a ``FileStore`` in a temporary directory, and calls
 :class:`~sph_tpu_torch.parallel.comm.Comm`. It returns the list of the
 ranks' return values in rank order, every tensor in them turned into a
 NumPy array. A rank that raises fails the call with that rank's traceback;
-the other ranks are then terminated.
+the other ranks are then ended.
+
+Hangs are bounded twice. The process group's collectives time out after
+``GROUP_TIMEOUT`` (a collective whose peer never comes fails its rank:
+gloo raises, NCCL's watchdog ends the process), and the call itself has a
+deadline (``timeout_s`` after the ranks start): when it passes, every
+rank still running is ended and the call raises ``TimeoutError`` naming
+them.
 
 ``fn`` must be importable by name (a module-level function of a module
 that imports no more than the ranks need). The kernels are built here,
@@ -19,6 +26,7 @@ library and never run ``nvcc`` at once.
 """
 from __future__ import annotations
 
+import datetime
 import os
 import queue
 import shutil
@@ -28,16 +36,20 @@ import traceback
 
 import torch
 
-TIMEOUT_S = 3600.0
+TIMEOUT_S = 900.0
+# a collective's limit in every process group the package starts
+GROUP_TIMEOUT = datetime.timedelta(minutes=3)
 
 
-def run_ranks(fn, world: int, backend: str, devices, *args):
+def run_ranks(fn, world: int, backend: str, devices, *args,
+              timeout_s: float = TIMEOUT_S):
     """``fn(comm, *args)`` on ``world`` ranks; their results in rank order.
 
     ``backend``: "gloo" or "nccl" (never chosen here). ``devices``: one
     device for every rank (e.g. "cpu" or "cuda:0"), or a list of one a
-    rank. The ranks share this process's torch threads; a rank that has
-    not returned after ``TIMEOUT_S`` fails the call."""
+    rank. The ranks share this process's torch threads. ``timeout_s``
+    seconds after the ranks start, those that have not returned are ended
+    and the call raises ``TimeoutError`` naming them."""
     from .comm import BACKENDS
 
     if backend not in BACKENDS:
@@ -67,12 +79,12 @@ def run_ranks(fn, world: int, backend: str, devices, *args):
                          args=(fn, rank, world, backend, devices[rank],
                                threads, store, args, results))
              for rank in range(world)]
+    deadline = time.monotonic() + timeout_s
     try:
         for p in procs:
             p.start()
         out = [None] * world
         pending = set(range(world))
-        deadline = time.monotonic() + TIMEOUT_S
         while pending:
             try:
                 rank, ok, value = results.get(timeout=1.0)
@@ -83,8 +95,10 @@ def run_ranks(fn, world: int, backend: str, devices, *args):
                         f"rank {dead[0]} exited with code "
                         f"{procs[dead[0]].exitcode} and no result")
                 if time.monotonic() > deadline:
-                    raise TimeoutError(f"ranks {sorted(pending)} still "
-                                       f"running after {TIMEOUT_S} s")
+                    late = ", ".join(map(str, sorted(pending)))
+                    raise TimeoutError(
+                        f"rank(s) {late} of {world} did not return within "
+                        f"{timeout_s:g} s; ended")
                 continue
             if not ok:
                 raise RuntimeError(f"rank {rank} failed:\n{value}")
@@ -100,6 +114,9 @@ def run_ranks(fn, world: int, backend: str, devices, *args):
                 p.terminate()
         for p in started:
             p.join(timeout=10)
+            if p.is_alive():        # a rank stuck in a CUDA call
+                p.kill()
+                p.join(timeout=10)
         results.close()
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -116,7 +133,8 @@ def _rank_main(fn, rank, world, backend, device, threads, store, args,
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         dist.init_process_group(backend, store=dist.FileStore(store, world),
-                                rank=rank, world_size=world)
+                                rank=rank, world_size=world,
+                                **group_options(backend, dev))
         try:
             value = fn(Comm(device=dev, backend=backend), *args)
             results.put((rank, True, to_numpy(value)))
@@ -124,6 +142,18 @@ def _rank_main(fn, rank, world, backend, device, threads, store, args,
             dist.destroy_process_group()
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
+
+
+def group_options(backend: str, device) -> dict:
+    """``init_process_group``'s keywords for a rank on ``device``: the
+    collectives' timeout, and under nccl the rank's card, so that the
+    communicator forms at once among every rank (a batch of point-to-point
+    ops that only some ranks post is then never the group's first
+    call)."""
+    kw = dict(timeout=GROUP_TIMEOUT)
+    if backend == "nccl":
+        kw["device_id"] = torch.device(device)
+    return kw
 
 
 def to_numpy(value):

@@ -13,9 +13,11 @@ import torch
 
 class StepTimer:
     """Wall-clock milliseconds since the last ``refresh``; ``report``
-    prints (through ``log``) and accumulates named sections."""
+    prints (through ``log``) and accumulates named sections. ``device``:
+    where the timed work runs (the card unless the caller names the
+    CPU)."""
 
-    def __init__(self, device="cpu", log=None):
+    def __init__(self, device="cuda", log=None):
         self._cuda = torch.device(device).type == "cuda"
         self._log = log
         self._t0 = self._t1 = time.perf_counter()

@@ -13,11 +13,13 @@ into slices: only the chain order enters its collectives, so the run
 matches the single-device engine within 5e-5 with no halo or migration
 overflow.
 
-    python -m sph_tpu_torch.scripts.multihost_halo [--device cuda|cpu]
+    python -m sph_tpu_torch.scripts.multihost_halo [--backend gloo|nccl]
+        [--device cuda|cpu]
 
-The ranks are gloo ranks; on the card (the default) all four share
-``cuda:0``, and ``--device cpu`` runs them on the CPU, as sph_tpu's script
-runs its processes on CPU devices.
+gloo ranks (the default) on the card (the default) all share ``cuda:0``;
+nccl ranks take a card each (``cuda:0`` to ``cuda:3``: four cards), as a
+host's ranks would. ``--device cpu`` runs gloo ranks on the CPU, as
+sph_tpu's script runs its processes on CPU devices.
 """
 from __future__ import annotations
 
@@ -70,20 +72,30 @@ def _rank(comm):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
+                    help="gloo: the ranks share the device; nccl: a card a "
+                         "rank")
     ap.add_argument("--device", default="cuda",
                     help="the ranks' device (gloo ranks share one card) and "
                          "the reference's")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
+    world = N_SLICES * PER_SLICE
     if device.type == "cuda":
         if not torch.cuda.is_available():
             print("multihost_halo: CUDA is not available (--device cpu runs "
                   "the ranks on the CPU)", file=sys.stderr)
             return 1
         device = torch.device("cuda", device.index or 0)
-    world = N_SLICES * PER_SLICE
+    devices = str(device)
+    if args.backend == "nccl":
+        if device.type != "cuda" or torch.cuda.device_count() < world:
+            print(f"multihost_halo: nccl needs a card for each of the "
+                  f"{world} ranks", file=sys.stderr)
+            return 1
+        devices = [f"cuda:{i}" for i in range(world)]
     t0 = time.time()
-    res = run_ranks(_rank, world, "gloo", str(device))
+    res = run_ranks(_rank, world, args.backend, devices)
     params, scene, cfg = _scene()
     ref = F.make_fast_multi_step(params, scene.layout(), cfg, STEPS)(
         *scene.device_state(device)).pos.cpu().numpy()
@@ -97,7 +109,8 @@ def main(argv=None) -> int:
         good = err <= TOL and not any(ovf.values())
         ok &= good
         print(f"[rank {r['rank']}] {'OK' if good else 'FAIL'}: "
-              f"{N_SLICES} slices x {PER_SLICE} gloo ranks on {device}, "
+              f"{N_SLICES} slices x {PER_SLICE} {args.backend} ranks on "
+              f"{devices}, "
               f"{scene.n_particles} particles, {STEPS} steps across 2 "
               f"distributed resorts, {len(r['pos'])} rows, max |dpos| vs "
               f"single-device fast = {err:.2e}, overflow {ovf}", flush=True)

@@ -1,6 +1,8 @@
 """Rank functions for the port's multi-rank tests (``run_ranks`` starts
 them in spawned processes, which import this module: it imports torch and
 the port only, never jax)."""
+import time
+
 import torch
 
 from sph_tpu_torch.parallel import make_halo_session, make_mesh2, shard_state
@@ -53,3 +55,12 @@ def mesh2_halo(comm, n_slices, per_slice, scene, params, cfg, n_steps,
     chain = make_mesh2(n_slices, per_slice, device=comm.device)
     return halo_rank(chain, scene, params, cfg, [(n_steps, True)],
                      halo_pad=halo_pad)[0]
+
+
+def waits_on_peer(comm):
+    """Rank 0 waits in a psum that rank 1 never makes: rank 1 sleeps past
+    any deadline a test gives."""
+    if comm.rank == 0:
+        comm.psum(torch.ones(1))
+    else:
+        time.sleep(600)
