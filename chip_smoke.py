@@ -14,6 +14,13 @@ them to the kernels the card ran, as the profiler records them):
 2. build: compiles the Hopper pair-pass kernels from ``sph_tpu_torch/ops/
    csrc`` (nvcc, sm_90a) and prints the build seconds and each kernel's
    registers, shared memory, stack and spills from ``-Xptxas -v``;
+2b. the native scene builder: ``sph_tpu_torch/scene/csrc/scene_builder.cpp``
+   compiled with g++ on this host (``scene.native``; its build seconds
+   printed), then sph_tpu's five default scenes generated on it, each
+   checked against sph_tpu's particle counts (``NATIVE_SCENES``: the full
+   worm's 231,811, the liquid box, the dam-break, the 2-worm scene, the
+   reduced worm) with its generation seconds. Every later phase builds its
+   scenes on this path, sph_tpu's default;
 3. kernel vs plain (small): a small box (8h, fill 0.5) is stepped until its
    pool rests on the floor; the packs and tables that one more sort + step
    hand to each pair pass, from that state with a seeded downward velocity
@@ -98,7 +105,7 @@ them to the kernels the card ran, as the profiler records them):
    and < 1 on its wall anchors (the scene starts stretched), the fallback's
    accelerations on the card against the cpu, then 10 steps cuda vs cpu;
 14. the dam-break (``generate_liquid_box_scene(SimParams(),
-   fill_fraction=0.8)``, 919,158 particles): auto must pick the fast engine;
+   fill_fraction=0.8)``, 918,082 particles): auto must pick the fast engine;
    one period of warm-up, 120 timed steps (finite, walls still, liquid in
    the box, 9 launches a step), then every kernel against its plain version
    and timed beside its bound on the final state;
@@ -178,10 +185,15 @@ them to the kernels the card ran, as the profiler records them):
    ``restore``s and steps 45, and a second ``restore`` into it steps 45
    again, both bitwise equal to the uninterrupted run, the second capturing
    no graph; save and restore seconds, the archive's bytes, its keys
-   sph_tpu's; (d) two periods of ``make_fastw_multi_step`` with the walls
-   sorted in the graph (``wall_static=None``) against the hoisted path
-   from that state, positions within 1e-4, exactly one more rho* launch a
-   period, ms/step in turns; the ``raw_sw`` launch (shell rows x wall
+   sph_tpu's; (d) ``make_fastw_multi_step`` with the walls sorted in the
+   graph (``wall_static=None``) against the hoisted path: one sort of
+   that state on both (shell rows bitwise, the in-graph f32 wall sums
+   within 1e-5 of the host's f64 sums' scale), ``WALL_STEPS`` steps from
+   the state and from the hoisted path's state a period on (a resort
+   each) within 1e-4, and two periods from the state within 1e-4 or, where
+   it grows past that, within the hoisted path's own divergence when every
+   wall sum is one ulp up; exactly one more rho* launch a period, ms/step
+   in turns; the ``raw_sw`` launch (shell rows x wall
    columns) on one resort's inputs against its plain version as phase 3
    holds a kernel, timed by CUDA events and profiler device time beside its
    bound; (c) 60 steps from the checkpoint with a frame every 10 steps,
@@ -195,7 +207,7 @@ them to the kernels the card ran, as the profiler records them):
    and ``info`` in subprocesses. It prints its seconds;
 22. the at-scale legs: ``sph_tpu_torch.scripts.bench_scale.measure`` on the
    2-worm scene (``generate_multi_worm_scene(2)`` in
-   ``generate_multi_worm_params(2)``'s widened pool, 437,826 particles)
+   ``generate_multi_worm_params(2)``'s widened pool, 436,750 particles)
    and on the dam-break (fill 0.8), each on fastw (block 256, ccol 512,
    ccol_c 256, walls hoisted) and on fast (``compute_fast_config``'s
    defaults): one untimed chunk of 30 steps (the graph's capture), then 4
@@ -217,7 +229,8 @@ them to the kernels the card ran, as the profiler records them):
    |dz| > 3 noise and > 0.05; final max strain < 0.5), move the worm's
    centre of mass the way sph_tpu's did (dz > 0) and count no shell
    overflow; prints dz, noise, strains and bounding boxes beside
-   sph_tpu's record (+1.7496, 0.0468, 0.215), the loop's ms/step, the
+   sph_tpu's record on the same 231,811-particle scene (+1.7496, 0.0468,
+   0.215), the loop's ms/step, the
    first chunk's window drift (fastw: whether it outruns the shell), and
    the idle share: 1 - the device busy ms a step (torch.profiler over 2
    more chunks of the same runner) / the loop's ms a step;
@@ -258,13 +271,21 @@ them to the kernels the card ran, as the profiler records them):
    torchrun of the CLI on the full worm (rank 0 prints, naming every
    rank's card, and writes the checkpoint, held to the fast engine by
    the worm's rule). The halo paths' launches a step (summed over the
-   ranks) join the kernels' ``launches_per_step``.
+   ranks) join the kernels' ``launches_per_step``;
+25. ``runtime.timing.profile_trace`` on the main path: the full worm
+   through ``Simulator(engine="auto", device="cuda")``, the first period a
+   step at a time, one whole period (its graph's capture), then one period
+   replayed inside ``profile_trace`` (closed by ``session_tail``); the
+   Chrome trace it writes is read back and must hold a kernel record of
+   each of the six pair kernels the path launches (records a kernel
+   printed beside its launches).
 
 Each phase prints its seconds. ``--only`` runs the named phases alone
-(small: 3-4, box: 5-6, rworm: 7, rworm_engine: 8, worm: 9-10, small_fast:
-11-12, tiny_worm: 13, dam: 14, fast_worm: 15, exact: 16, bench: 17, pack:
-18, ab: 19, graph: 20, runtime: 21, scale: 22, locomotion: 23, halo: 24)
-while iterating; the run then prints no result lines and exits 2.
+(native: 2b, small: 3-4, box: 5-6, rworm: 7, rworm_engine: 8, worm: 9-10,
+small_fast: 11-12, tiny_worm: 13, dam: 14, fast_worm: 15, exact: 16, bench:
+17, pack: 18, ab: 19, graph: 20, runtime: 21, scale: 22, locomotion: 23,
+halo: 24, trace: 25) while iterating; the run then prints no result lines
+and exits 2.
 
 Ends with a JSON line of per-kernel results (each kernel's numbers from the
 path that runs it at its main shapes, with its launches a step on every
@@ -435,13 +456,24 @@ CLI_RUN = []                   # more flags of the run commands
 CLI_STEPS, CLI_MORE = 60, 30   # a frame and a period every 30 steps
 # ---- the at-scale legs and the locomotion run (phases 22-23) ----
 N_WORMS = 2
-WORM2_PARTICLES = 437826       # the NumPy path's 2-worm scene
 SCALE_ROUNDS = 4               # timed chunks of 30 steps a leg
 LOCO_STEPS, LOCO_CHUNK, LOCO_REPORT = 20000, 30, 500   # the reference's
 # sph_tpu's locomotion record on the fast engine (BASELINE.md:106-109):
-# 20,000 steps of the full worm (its native builder's 231,811 particles)
+# 20,000 steps of its default full worm, the scene the port now builds
 REF_LOCO = dict(dz=1.7496, noise=0.0468, strain=0.215)
 LOCO_PROFILE_CHUNKS = 2        # profiled chunks for the device busy time
+# ---- the native scene builder and the trace (phases 2b, 25) ----
+# sph_tpu's default scenes (its native builder): particles, and the type
+# counts that set them apart from the NumPy path's (1,076 more walls on the
+# full box's 30h x 20h x 250h; the reduced worm's pool 840 fewer liquid)
+NATIVE_SCENES = {
+    "worm": dict(n=231_811, liquid=120_336, elastic=10_143,
+                 boundary=101_332, springs=137_804, membranes=11_386),
+    "box": dict(n=210_232, boundary=101_332),
+    "dam": dict(n=918_082, liquid=816_750),
+    "worm2": dict(n=436_750, boundary=165_892),
+    "rworm": dict(n=60_603, liquid=24_036),
+}
 # sph_tpu's checkpoint keys (``runtime.checkpoint.KEYS``; a CPU test holds
 # the list to sph_tpu's archive)
 CKPT_KEYS = CK.KEYS
@@ -1155,6 +1187,41 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def native_scenes(name):
+    """sph_tpu's default scene ``name`` of ``NATIVE_SCENES``."""
+    base = SimParams()
+    if name == "worm":
+        return generate_worm_scene(base)
+    if name == "worm2":
+        return generate_multi_worm_scene(N_WORMS, base)
+    if name == "rworm":
+        return generate_worm_scene(SimParams(**REDUCED_WORM))
+    return generate_liquid_box_scene(
+        base, fill_fraction=0.8 if name == "dam" else 0.15)
+
+
+def native_phase(card, profile_steps):
+    # 2b. the native scene builder on this host, and sph_tpu's default
+    # scenes built on it
+    from sph_tpu_torch.scene import native
+
+    t0 = time.perf_counter()
+    so = native.build()
+    check(so is not None and native.available(),
+          "native scene builder: no g++ on this host")
+    print(f"native: {so.name} ready in {time.perf_counter() - t0:.2f} s "
+          f"(g++ {' '.join(native.FLAGS)})", flush=True)
+    for name, want in NATIVE_SCENES.items():
+        t0 = time.perf_counter()
+        scene = native_scenes(name)
+        got = dict(scene.counts, n=scene.n_particles)
+        print(f"native: {name} {got} in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        check(all(got[k] == v for k, v in want.items()),
+              f"native {name}: {got}, sph_tpu's scene has {want}")
+    return None
 
 
 def settled_small_box(scene, small):
@@ -2497,12 +2564,43 @@ def runtime_checkpoint(worm, params, tmp, card):
     return ck, a
 
 
+WALL_STEPS = 5   # steps from each resort's common state (21d)
+
+
+def walls_sums(a, params, ws):
+    """21d: one sort of ``a``'s state on both wall paths: whether the shell
+    rows are equal bitwise, and the largest |diff| of the in-graph
+    (``raw_sw``, f32) wall-wall sums from the hoisted (host f64) ones on
+    the real shell rows, with their largest |sum| (the pass's rounding
+    scale: the terms are positive) and the rows that differ."""
+    ctxs = [W._make_step_parts_w(params, a.layout, a._fast_cfg, wall_static=w)
+            .sort_ctx(a.state, a.springs, a.membranes)[0] for w in (None, ws)]
+    same = all(torch.equal(x, y) for x, y in zip(ctxs[0]["shell_static"],
+                                                  ctxs[1]["shell_static"]))
+    real = ctxs[1]["shell_static"][6][:len(ctxs[1]["ww_const"])] > 0
+    got, ref = (c["ww_const"][real].double() for c in ctxs)
+    diff = (got - ref).abs()
+    return (same, float(diff.max()), float(ref.abs().max()),
+            int((diff > 0).sum()), int(real.sum()))
+
+
+def walls_run(a, params, steps, wall_static, start=None):
+    """``steps`` fastw steps of ``a``'s scene from ``start`` (``a``'s
+    state) on the given wall path."""
+    return W.make_fastw_multi_step(params, a.layout, a._fast_cfg, steps,
+                                   wall_static=wall_static)(
+        a.state if start is None else start, a.springs, a.membranes)
+
+
 def runtime_walls(a, params, card):
-    """21d: two periods of the fastw engine with the walls sorted in the
-    graph (``wall_static=None``: ``raw_sw`` once a resort) against the
-    hoisted path from the same state; the raw_sw launch against its plain
-    version on one resort's inputs, timed beside its bound. Returns the
-    kernels-line entry and the launches a step."""
+    """21d: the fastw engine with the walls sorted in the graph
+    (``wall_static=None``: ``raw_sw`` once a resort) against the hoisted
+    path: the wall sums of one sort (``walls_sums``), ``WALL_STEPS`` steps
+    after each resort from a common state, and two periods from the same
+    state beside the hoisted path's own divergence under a one-ulp change
+    of its wall sums; the raw_sw launch against its plain version on one
+    resort's inputs, timed beside its bound. Returns the kernels-line
+    entry and the launches a step."""
     state, springs, membranes = a.state, a.springs, a.membranes
     layout, cfg, ws = a.layout, a._fast_cfg, a._wall_static
     steps = WALL_PERIODS * cfg.resort_every
@@ -2516,14 +2614,45 @@ def runtime_walls(a, params, card):
               and int(diag["tile_overflow"]) == 0,
               f"walls {key}: overflow {diag}")
         outs[key] = out
+    # the wall sums of one sort: the in-graph f32 sums against the host's
+    # f64 ones, held as a kernel is held to its plain version
+    same, dww, scale, n_diff, n_real = walls_sums(a, params, ws)
+    print(f"runtime walls: one sort at step {int(state.step)}: shell rows "
+          f"equal bitwise {same}; wall sums on the {n_real} real shell rows,"
+          f" in-graph (f32) vs hoisted (f64): max|diff| {dww:.3e} (<= "
+          f"{KERNEL_TOL:g} x {scale:.4g}), {n_diff} rows differ", flush=True)
+    check(same and dww <= KERNEL_TOL * scale,
+          f"walls: shell rows equal {same}, wall sums differ by {dww}")
+    # a few steps after each resort of the two periods, from a common
+    # state: the hoisted path's at the start and one period on
+    mid = walls_run(a, params, cfg.resort_every, ws)
+    d_short = max(float((walls_run(a, params, WALL_STEPS, None, s0).pos
+                         - walls_run(a, params, WALL_STEPS, ws, s0).pos)
+                        .abs().max()) for s0 in (state, mid))
+    # the two periods whole. Where the liquid presses on the walls (the
+    # pool's last x-column starts within h of the far x-wall) a wall's
+    # density leaves its clamp, and there one ulp of the wall sums grows
+    # over the periods: the control is the hoisted path with every wall
+    # sum one ulp up, and the in-graph path may differ from the hoisted
+    # one by no more than that control (nor by more than ENGINE_TOL where
+    # the control stays below it)
+    up = dict(ws, ww=torch.nextafter(ws["ww"], torch.full_like(
+        ws["ww"], float("inf"))))
+    control = float((walls_run(a, params, steps, up).pos
+                     - outs["hoisted"].pos).abs().max())
     d = float((outs["in-graph"].pos - outs["hoisted"].pos).abs().max())
     moved = float((outs["in-graph"].pos - state.pos).abs().max())
-    print(f"runtime walls: {WALL_PERIODS} periods from step "
-          f"{int(state.step)}, walls sorted in the graph vs wall_static: "
-          f"max|dpos| {d:.3e} (<= {ENGINE_TOL:g}), largest displacement "
-          f"{moved:.3e}", flush=True)
+    print(f"runtime walls: walls sorted in the graph vs wall_static: "
+          f"max|dpos| {d_short:.3e} over {WALL_STEPS} steps from step "
+          f"{int(state.step)} and from step {int(mid.step)} (<= "
+          f"{ENGINE_TOL:g}); {d:.3e} over {WALL_PERIODS} periods from step "
+          f"{int(state.step)}, against {control:.3e} for wall_static with "
+          f"its wall sums one ulp up (<= max({ENGINE_TOL:g}, that)); "
+          f"largest displacement {moved:.3e}", flush=True)
     check(np.isfinite(outs["in-graph"].pos.cpu().numpy()).all()
-          and d <= ENGINE_TOL, f"in-graph walls vs wall_static: {d}")
+          and d_short <= ENGINE_TOL and d <= max(ENGINE_TOL, control),
+          f"in-graph walls vs wall_static: {d_short} over {WALL_STEPS} "
+          f"steps, {d} over {WALL_PERIODS} periods (control {control})")
     check(moved > 100 * ENGINE_TOL, f"the worm moved only {moved}")
     times = {k: [] for k in runs}
     for key in ("hoisted", "in-graph", "in-graph", "hoisted"):
@@ -2770,7 +2899,7 @@ def scale_phase(card, profile_steps):
           f"{worm2.n_particles}, generated in {t_worm:.1f} s; dam-break "
           f"{dam.counts}, n {dam.n_particles}, generated in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    check(worm2.n_particles == WORM2_PARTICLES,
+    check(worm2.n_particles == NATIVE_SCENES["worm2"]["n"],
           f"2-worm scene: {worm2.n_particles} particles")
     check(worm2.layout().springs_elastic_only,
           "the 2-worm scene anchors springs to the walls")
@@ -2861,7 +2990,7 @@ def runner_profile(run, state, springs, membranes, chunks, top=0):
 def locomotion_phase(card, profile_steps):
     # 23. ``scripts.locomotion`` on the full worm, 20,000 steps with the
     # acceptance gate, on fastw (the main path) and on fast (sph_tpu's
-    # engine for this run)
+    # engine for this run), on the scene of sph_tpu's record
     argv = ["--steps", str(LOCO_STEPS), "--chunk", str(LOCO_CHUNK),
             "--report-every", str(LOCO_REPORT), "--assert-propels",
             "--frames", ""]
@@ -2897,6 +3026,9 @@ def locomotion_phase(card, profile_steps):
             print(f"  locomotion [{engine}]: the first period outruns the "
                   f"shell: {out['first_drift_h'] >= bound}", flush=True)
         check(out["engine"] == engine, f"locomotion: ran {out['engine']}")
+        check(out["particles"] == NATIVE_SCENES["worm"]["n"],
+              f"locomotion: {out['particles']} particles, not the scene of "
+              "sph_tpu's record")
         check(rc == 0 and out["passed"],
               f"locomotion [{engine}]: the acceptance gate failed "
               f"({out['verdict']}, strain {out['strain']})")
@@ -3616,9 +3748,58 @@ def halo_phase(card, profile_steps):
     return dict(kernels={}, launches=launches)
 
 
+TRACE_STEPS = 30     # one period of the main path under profile_trace
+
+
+def trace_phase(card, profile_steps):
+    # 25. ``runtime.timing.profile_trace`` on the main path, its Chrome
+    # trace read back
+    import tempfile
+
+    from sph_tpu_torch.runtime.timing import profile_trace
+
+    params = SimParams()
+    sim = Simulator(generate_worm_scene(params), params, engine="auto",
+                    device="cuda")
+    period = sim._fast_cfg.resort_every
+    sim.step(period - 1)         # the first period a step at a time
+    sim.step(1)
+    sim.step(period)             # its graph's capture
+    tail = session_tail()
+    with tempfile.TemporaryDirectory() as log_dir:
+        t0 = time.perf_counter()
+        with profile_trace(log_dir):
+            sim.step(TRACE_STEPS)
+            tail.replay()
+        t_trace = time.perf_counter() - t0
+        files = [os.path.join(log_dir, f) for f in os.listdir(log_dir)]
+        check(len(files) == 1 and files[0].endswith(".pt.trace.json"),
+              f"profile_trace wrote {files}")
+        size = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    records = pair_records(kernels)
+    print(f"trace: {TRACE_STEPS} main-path steps under profile_trace in "
+          f"{t_trace:.2f} s (the trace's export included), "
+          f"{os.path.basename(files[0])}: {size} B, {len(events)} events, "
+          f"{sum(kernels.values())} kernel records of {len(kernels)} "
+          f"names; pair-kernel records {records} against launches "
+          f"{ {k: v * TRACE_STEPS for k, v in PER_STEP.items()} } "
+          f"[{card}]", flush=True)
+    for kind in PER_STEP:
+        check(records.get(kind, 0) > 0,
+              f"trace: no record of the {kind} kernel in the trace")
+    return None
+
+
 # name -> phase(card, profile_steps), in running order; a phase that runs a
 # kernel's main path returns its ``kernels`` entries and launches a step
-PHASES = {"small": small_box_phases, "box": box_phases,
+PHASES = {"native": native_phase, "small": small_box_phases,
+          "box": box_phases,
           "rworm": reduced_worm_kernels, "rworm_engine": reduced_worm_engine,
           "worm": worm_phases, "small_fast": small_fast_phases,
           "tiny_worm": tiny_worm_phases, "dam": dam_break_phases,
@@ -3626,7 +3807,7 @@ PHASES = {"small": small_box_phases, "box": box_phases,
           "bench": bench_phase, "pack": pack_phase, "ab": ab_phase,
           "graph": graph_phase, "runtime": runtime_phase,
           "scale": scale_phase, "locomotion": locomotion_phase,
-          "halo": halo_phase}
+          "halo": halo_phase, "trace": trace_phase}
 
 
 if __name__ == "__main__":

@@ -16,7 +16,7 @@ build, when the library is not cached, the first resort and the capture of
 the period's CUDA graph).
 
 Configuration: the full worm from ``generate_worm_scene(SimParams())``
-(232,887 particles) on the values of ``results/r5/best_config.json``,
+(231,811 particles) on the values of ``results/r5/best_config.json``,
 carried here as defaults (``BEST``; its TPU-only DMA ``depth`` has no
 counterpart): engine fastw, block 256, ccol 512, ccol_c 256, resort_every
 30. ``SPH_BENCH_ENGINE`` (fastw, fast or exact) and ``SPH_BENCH_SUB`` (the

@@ -1,4 +1,5 @@
-"""Wall-clock step timing (counterpart of ``sph_tpu/runtime/timing.py``).
+"""Wall-clock step timing and profiler traces (counterpart of
+``sph_tpu/runtime/timing.py``).
 
 PyTorch returns before the device finishes, so on a CUDA device every
 reading synchronises first (``torch.cuda.synchronize``): a reading is the
@@ -6,6 +7,7 @@ time until the queued work is done, not the time to enqueue it.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -45,3 +47,24 @@ class StepTimer:
     @property
     def elapsed_ms(self) -> float:
         return (self._now() - self._t0) * 1e3
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str, device="cuda"):
+    """Record a ``torch.profiler`` trace of the block (the counterpart of
+    sph_tpu's ``jax.profiler`` trace): CPU and CUDA activity on the card,
+    CPU activity only when ``device`` is the CPU. On exit the card is
+    drained and a Chrome trace (``<host>_<pid>.<stamp>.pt.trace.json``: open
+    it in Perfetto or chrome://tracing) is written into ``log_dir``.
+    Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import tensorboard_trace_handler
+
+    cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+        if cuda:
+            torch.cuda.synchronize()

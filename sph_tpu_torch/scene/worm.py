@@ -2,14 +2,23 @@
 the C. elegans worm in its pool, n worms side by side in one widened pool,
 and the pure-liquid box.
 
-NumPy only, the loops of the original with its float32 rounding kept where
-it decides particle counts (slice radii, angle stepping, grid-extent
-divisions), so the generated scenes are bitwise equal to those of
-``sph_tpu``'s NumPy path. The muscle-window cascade of the reference is the
-data tables ``_DORSAL_WINDOWS`` / ``_VENTRAL_WINDOWS`` (one row per y-band x
-z-window) consumed by one vectorized matcher: later windows override earlier
-ones, unmatched gated springs keep the 1.1 code (-> muscle id 1), as
-upstream.
+Two paths, as in ``sph_tpu``. Where ``native.available()`` (a ``g++`` is
+found: the default, as in ``sph_tpu``), the inner worm liquid, the pool,
+the wall box and the spring-graph search come from the native builder
+(``scene/native.py``); the worm shell, the membranes and the muscle windows
+stay NumPy. Otherwise all of it is NumPy: the loops of the original with
+its float32 rounding kept where it decides particle counts (slice radii,
+angle stepping, grid-extent divisions). Each path's scenes are bitwise
+equal to those of ``sph_tpu``'s same path. The two paths differ: the native
+builder takes the box extents as float32 and makes 101,332 walls on the
+full box where the NumPy path makes 102,408 (the full worm: 231,811
+particles against 232,887), and its inner liquid differs from the NumPy
+one in the last place of some coordinates (libm's sin and cos).
+
+The muscle-window cascade of the reference is the data tables
+``_DORSAL_WINDOWS`` / ``_VENTRAL_WINDOWS`` (one row per y-band x z-window)
+consumed by one vectorized matcher: later windows override earlier ones,
+unmatched gated springs keep the 1.1 code (-> muscle id 1), as upstream.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ from scipy.spatial import cKDTree
 
 from ..config import SimParams
 from ..constants import MAX_NEIGHBORS
+from . import native
 from .scene import Scene
 
 f32 = np.float32
@@ -193,6 +203,10 @@ def _worm_shell(params: SimParams):
 
 def _inner_worm_liquid(params: SimParams):
     r0 = f32(params.r0)
+    if native.available():
+        return native.inner_worm_liquid(
+            r0, params.x_max, params.y_max, params.z_max
+        )
     xc = f32(params.x_max * 0.5)
     yc = f32(params.y_max * 0.3)
     zc = f32(params.z_max * 0.5)
@@ -231,6 +245,10 @@ def _inner_worm_liquid(params: SimParams):
 def _pool_liquid(params: SimParams, fill: float = 0.15):
     """Rectangular swimming pool below y = YMAX*fill (owHelper.cpp:673-691)."""
     r0 = f32(params.r0)
+    if native.available():
+        return native.pool_liquid(
+            r0, params.x_max, params.y_max, params.z_max, fill
+        )
     pts = []
     x = f32(3.0 * float(r0))
     while x < params.x_max - 3.0 * float(r0):
@@ -250,6 +268,10 @@ def _boundary_box(params: SimParams):
     corners. The reference's non-unit normals on the x-extreme columns of the
     y-walls (magnitude 1/sqrt(2), owHelper.cpp:864-876) are kept verbatim."""
     r0 = float(f32(params.r0))
+    if native.available():
+        return native.boundary_box(
+            f32(params.r0), params.x_max, params.y_max, params.z_max
+        )
     nx = int(float(params.x_max - params.x_min) / r0)
     ny = int(float(params.y_max - params.y_min) / r0)
     nz = int(float(params.z_max - params.z_min) / r0)
@@ -428,6 +450,19 @@ def _spring_graph(pos, colors, n_elastic, n_liquid, params: SimParams):
     idx = np.full((n_elastic, MAX_NEIGHBORS), -1, np.int32)
     rest = np.zeros((n_elastic, MAX_NEIGHBORS), np.float32)
     stype = np.zeros((n_elastic, MAX_NEIGHBORS), np.float32)
+
+    if native.available():
+        idx, rest = native.spring_graph(
+            pos, n_elastic, n_liquid, r0, float(scale), MAX_NEIGHBORS,
+        )
+        r_idx, s_idx = np.nonzero(idx >= 0)
+        if len(r_idx):
+            codes = _assign_muscles(
+                pos[r_idx], pos[idx[r_idx, s_idx]],
+                colors[r_idx], colors[idx[r_idx, s_idx]], params,
+            )
+            stype[r_idx, s_idx] = codes
+        return idx, rest, stype
 
     tree = cKDTree(cpos.astype(np.float64))
     hits = tree.query_ball_point(

@@ -1,6 +1,6 @@
 """The port's package surface against sph_tpu's on the CPU: the multi-worm
-generator (both packages' NumPy generators, sph_tpu's native builder
-patched off; bitwise), ``make_state`` (host arrays to a state, bitwise) and
+generator (both packages on their NumPy path, ``torch_scenes.scene_path``;
+bitwise), ``make_state`` (host arrays to a state, bitwise) and
 the top-level names. (The scripts that use them are tested in
 ``tests/test_torch_scale.py``.)"""
 import dataclasses
@@ -14,7 +14,6 @@ from sph_tpu.config import SimParams as JParams
 from sph_tpu.core.state import make_state as j_make_state
 from sph_tpu.scene import generate_multi_worm_params as j_multi_params
 from sph_tpu.scene import generate_multi_worm_scene as j_multi_worm
-from sph_tpu.scene import native
 
 import sph_tpu_torch
 from sph_tpu_torch.constants import BOUNDARY_PARTICLE
@@ -25,19 +24,21 @@ from sph_tpu_torch.scene import (generate_liquid_box_scene,
                                  generate_worm_scene)
 
 from test_torch_fastw import BOX, WORM
+from torch_scenes import scene_path
 
 SCENE_FIELDS = ("pos", "vel", "color", "normal", "spring_rows", "spring_idx",
                 "spring_rest", "spring_type", "tris")
 
 
 @pytest.mark.parametrize("n_worms", [1, 2])
-def test_multi_worm_scene_equals_sph_tpu(n_worms, monkeypatch):
-    """Array for array, bitwise, on the reduced worm's lane; the widened
-    params field for field."""
-    monkeypatch.setattr(native, "available", lambda: False)
+def test_multi_worm_scene_equals_sph_tpu(n_worms):
+    """Array for array, bitwise, on the reduced worm's lane (both packages'
+    NumPy path); the widened params field for field."""
     jp = JParams(**WORM)
-    js = j_multi_worm(n_worms, jp)
-    ps = generate_multi_worm_scene(n_worms, params_from(jp))
+    with scene_path(native=False):
+        js = j_multi_worm(n_worms, jp)
+        ps = generate_multi_worm_scene(n_worms, params_from(jp))
+        one = generate_worm_scene(params_from(jp)) if n_worms == 1 else None
     for f in SCENE_FIELDS:
         a, b = getattr(ps, f), getattr(js, f)
         assert a.dtype == b.dtype, f
@@ -52,7 +53,6 @@ def test_multi_worm_scene_equals_sph_tpu(n_worms, monkeypatch):
     layout = ps.layout()
     assert layout.springs_elastic_only and layout.elastic_range[0] == 0
     if n_worms == 1:         # one worm is the worm scene
-        one = generate_worm_scene(params_from(jp))
         for f in SCENE_FIELDS:
             np.testing.assert_array_equal(getattr(ps, f), getattr(one, f))
     else:                    # the worms are the same worm a lane apart

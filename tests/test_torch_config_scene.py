@@ -19,7 +19,6 @@ from sph_tpu.core import fast as JF
 from sph_tpu.models import muscle as jmuscle
 from sph_tpu.scene import generate_liquid_box_scene as j_box
 from sph_tpu.scene import generate_worm_scene as j_worm
-from sph_tpu.scene import native
 
 from sph_tpu_torch import constants as tconst
 from sph_tpu_torch.config import SimParams
@@ -28,6 +27,8 @@ from sph_tpu_torch.convert import (membranes_from_numpy, params_from,
 from sph_tpu_torch.core import fast as F
 from sph_tpu_torch.models import muscle
 from sph_tpu_torch.scene import generate_liquid_box_scene, generate_worm_scene
+
+from torch_scenes import scene_path
 
 H = 3.34
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -82,26 +83,27 @@ def test_liquid_box_scene_bitwise_small():
     _assert_scene_equal(s, j_box(JParams(**kw), fill_fraction=0.5))
 
 
-def test_liquid_box_scene_bitwise_full(monkeypatch):
-    """Full-size box against sph_tpu's NumPy generator, which the port
-    copies. (sph_tpu's optional native library, ``native/``, receives the
-    box extents as f32 and counts 59 x-columns where the NumPy path counts
-    60: 101,332 walls instead of 102,408.)"""
-    monkeypatch.setattr(native, "available", lambda: False)
-    s = generate_liquid_box_scene(SimParams())
-    _assert_scene_equal(s, j_box(JParams()))
+def test_liquid_box_scene_bitwise_full():
+    """Full-size box on both packages' NumPy path. (Their native builders
+    receive the box extents as f32 and count 59 x-columns where the NumPy
+    path counts 60: 101,332 walls instead of 102,408;
+    ``tests/test_torch_native.py`` holds that path.)"""
+    with scene_path(native=False):
+        s = generate_liquid_box_scene(SimParams())
+        js = j_box(JParams())
+    _assert_scene_equal(s, js)
     assert s.counts["liquid"] == 108_900
     assert s.counts["boundary"] == 102_408
 
 
-def test_worm_scene_bitwise_small(monkeypatch):
-    """The worm at the 20h x 12h x 110h size of ``tests/test_scene.py``
-    against sph_tpu's NumPy generator, array for array; the device state and
-    the converters carry its springs and membranes over unchanged."""
-    monkeypatch.setattr(native, "available", lambda: False)
+def test_worm_scene_bitwise_small():
+    """The worm at the 20h x 12h x 110h size of ``tests/test_scene.py`` on
+    both packages' NumPy path, array for array; the device state and the
+    converters carry its springs and membranes over unchanged."""
     kw = dict(x_max=20 * H, y_max=12 * H, z_max=110 * H)
-    s = generate_worm_scene(SimParams(**kw))
-    js = j_worm(JParams(**kw))
+    with scene_path(native=False):
+        s = generate_worm_scene(SimParams(**kw))
+        js = j_worm(JParams(**kw))
     _assert_scene_equal(s, js)
     c = s.counts
     assert c["elastic"] == 10_143 and c["membranes"] == 11_386

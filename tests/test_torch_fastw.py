@@ -24,7 +24,6 @@ from sph_tpu.core.step import multi_step
 from sph_tpu.runtime.simulator import resolve_auto_engine as j_resolve
 from sph_tpu.scene import generate_liquid_box_scene as j_box
 from sph_tpu.scene import generate_worm_scene as j_worm
-from sph_tpu.scene import native
 from sph_tpu.scene.scene import Scene as JScene
 
 from sph_tpu_torch.constants import MAX_NEIGHBORS, MUSCLE_COUNT
@@ -38,6 +37,7 @@ from sph_tpu_torch.scene import (Scene, generate_liquid_box_scene,
 
 from test_fast_engine import sparse_blob_scene
 from test_torch_pair_kernels import kick_box_scene
+from torch_scenes import scene_path
 
 H = 3.34
 ATOL = 5e-5
@@ -313,14 +313,10 @@ def test_port_matches_jax_fastw_elastic(name, steps):
 def worm():
     """The reduced worm of both packages (sph_tpu's NumPy generator), the
     port's engine parts and sort context, and sph_tpu's sort context."""
-    saved = native.available
-    native.available = lambda: False
-    try:
-        js = j_worm(JParams(**WORM))
-    finally:
-        native.available = saved
     params = params_from(JParams(**WORM))
-    scene = generate_worm_scene(params)
+    with scene_path(native=False):
+        js = j_worm(JParams(**WORM))
+        scene = generate_worm_scene(params)
     np.testing.assert_array_equal(scene.pos, js.pos)
     np.testing.assert_array_equal(scene.spring_idx, js.spring_idx)
     layout = scene.layout()

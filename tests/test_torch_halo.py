@@ -46,7 +46,6 @@ from sph_tpu.parallel import shard_state as j_shard
 from sph_tpu.parallel.halo import make_halo_fast_multi_step as j_halo
 from sph_tpu.scene import generate_liquid_box_scene as j_box
 from sph_tpu.scene import generate_worm_scene as j_worm
-from sph_tpu.scene import native
 
 from sph_tpu_torch.constants import (BOUNDARY_PARTICLE, ELASTIC_PARTICLE,
                                      LIQUID_PARTICLE)
@@ -62,6 +61,7 @@ import torch_ranks
 from test_torch_fast import ATOL, BOX_STEPS, VTOL
 from test_torch_fastw import KICK, WORM, port_scene
 from test_torch_pair_kernels import kick_box_scene
+from torch_scenes import scene_path
 
 H = 3.34
 BLOCK = 128
@@ -191,12 +191,8 @@ def near_coincident(scene, params):
 @pytest.fixture(scope="module")
 def worm_jax():
     jp = JParams(**HALO_WORM)
-    saved = native.available
-    native.available = lambda: False
-    try:
+    with scene_path(native=False):
         js = j_worm(jp)
-    finally:
-        native.available = saved
     return jp, js, jax_halo(jp, js, 2, 3, 2048, resort_every=2)
 
 
@@ -238,7 +234,9 @@ def test_halo_worm_matches_fast_and_sph_tpu(worm_jax):
     from sph_tpu_torch.scene import generate_worm_scene
 
     rparams = params_from(JParams(**WORM))
-    rworm = pad_scene_to_devices(generate_worm_scene(rparams), 2 * BLOCK)
+    with scene_path(native=False):
+        rworm = generate_worm_scene(rparams)
+    rworm = pad_scene_to_devices(rworm, 2 * BLOCK)
     assert rworm.layout().springs_elastic_only
     rcfg = port_cfg(rworm, rparams, 2, resort_every=2)
     ref = fast_ref(rworm, rparams, rcfg, 3)

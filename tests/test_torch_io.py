@@ -28,6 +28,7 @@ from sph_tpu_torch.scene import io
 from sph_tpu_torch.viz import render
 
 from test_torch_fastw import port_scene
+from torch_scenes import scene_path
 
 H = 3.34
 SCENE_FILES = ("position.txt", "velocity.txt", "elasticconnections.txt")
@@ -159,20 +160,17 @@ def _stdout_of(main, argv):
 
 
 @pytest.mark.parametrize("scene", ["box", "worm"])
-def test_cli_info_and_genscene_equal_sph_tpu(scene, tmp_path, monkeypatch):
+def test_cli_info_and_genscene_equal_sph_tpu(scene, tmp_path):
     """``info`` prints sph_tpu's JSON; ``genscene`` writes its files byte
-    for byte (the 8h box and the tiny worm's box). sph_tpu generates on its
-    NumPy path, which the port copies (its optional native library builds
-    other walls, ROADMAP Queue 3)."""
-    from sph_tpu.scene import native
-
-    monkeypatch.setattr(native, "available", lambda: False)
+    for byte (the 8h box and the tiny worm's box), both packages on their
+    NumPy path."""
     box = "8,8,8" if scene == "box" else "14,12,108"
     args = ["--scene", scene, "--box", box]
-    assert json.loads(_stdout_of(cli, ["info"] + args)) == json.loads(
-        _stdout_of(j_cli, ["info"] + args))
-    _stdout_of(cli, ["genscene"] + args + ["--out", str(tmp_path / "p")])
-    _stdout_of(j_cli, ["genscene"] + args + ["--out", str(tmp_path / "j")])
+    with scene_path(native=False):
+        assert json.loads(_stdout_of(cli, ["info"] + args)) == json.loads(
+            _stdout_of(j_cli, ["info"] + args))
+        _stdout_of(cli, ["genscene"] + args + ["--out", str(tmp_path / "p")])
+        _stdout_of(j_cli, ["genscene"] + args + ["--out", str(tmp_path / "j")])
     names = [n for n in SCENE_FILES if os.path.exists(tmp_path / "j" / n)]
     assert len(names) == (3 if scene == "worm" else 2)
     assert sorted(os.listdir(tmp_path / "p")) == sorted(names)

@@ -63,7 +63,7 @@ def test_measure_wall_anchored_worm_runs_fast_and_says_so(capsys):
                             chunk=2, rounds=1, device="cpu")
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.startswith("tiny worm [fast (fastw refuses wall-anchored "
-                           "springs)]: 49153 particles")
+                           "springs)]: 48677 particles")
     assert r["engine"] == bench_scale.REFUSED and r["finite"]
     assert r["walls_still"] and r["shell_bound_h"] is None
     with pytest.raises(ValueError, match="unknown engine"):
@@ -153,12 +153,12 @@ def test_locomotion_small_run(tmp_path, capsys, monkeypatch):
     text = capsys.readouterr().out
     assert out["steps"] == reference_steps(4, 2, 2)[-1] == 4
     assert [t[0] for t in out["trace"]] == reference_steps(4, 2, 2)
-    assert out["particles"] == 49153 and np.isfinite(out["dz"])
+    assert out["particles"] == 48677 and np.isfinite(out["dz"])
     assert out["verdict"] == reference_verdict(
         out["dz"], [t[1] for t in out["trace"]])[1]
     assert not out["passed"] and out["shell_bound_h"] is None
     assert "RESULT: com_z displacement" in text and "ACCEPTANCE FAIL" in text
     record = (tmp_path / "record.md").read_text()
-    assert "### Locomotion run (4 steps, small worm, 49153 particles)" in \
+    assert "### Locomotion run (4 steps, small worm, 48677 particles)" in \
         record
     assert sorted(p.name for p in tmp_path.iterdir()) == ["record.md"]

@@ -24,7 +24,6 @@ from sph_tpu.parallel import measure_migration_pad as j_measure_mig_pad
 from sph_tpu.parallel import pad_scene_to_devices as j_pad
 from sph_tpu.scene import generate_liquid_box_scene as j_box
 from sph_tpu.scene import generate_worm_scene as j_worm
-from sph_tpu.scene import native
 
 from sph_tpu_torch.config import SimParams
 from sph_tpu_torch.convert import params_from
@@ -44,6 +43,7 @@ from sph_tpu_torch.scene import generate_liquid_box_scene
 
 import torch_ranks
 from test_torch_fastw import port_scene
+from torch_scenes import scene_path
 
 H = 3.34
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,12 +55,8 @@ SHARDED = {"box": (dict(x_max=8 * H, y_max=8 * H, z_max=8 * H), 4, 5, 1e-6),
 def jax_scene(name, jp):
     if name == "box":
         return j_box(jp, fill_fraction=0.5)
-    saved = native.available
-    native.available = lambda: False
-    try:
+    with scene_path(native=False):
         return j_worm(jp)
-    finally:
-        native.available = saved
 
 
 @pytest.mark.parametrize("name", ["box", "worm"])

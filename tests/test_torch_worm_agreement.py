@@ -27,7 +27,6 @@ import jax.numpy as jnp
 from sph_tpu.config import SimParams as JParams
 from sph_tpu.core import fastw as JW
 from sph_tpu.scene import generate_worm_scene as j_worm
-from sph_tpu.scene import native
 
 import chip_smoke
 from sph_tpu_torch.constants import (BOUNDARY_PARTICLE, ELASTIC_PARTICLE,
@@ -37,6 +36,7 @@ from sph_tpu_torch.core import fastw as W
 from sph_tpu_torch.scene import generate_worm_scene
 
 from test_torch_fastw import WORM
+from torch_scenes import scene_path
 
 TOL = 1e-4          # positions; velocities 10x
 STEPS = 2
@@ -47,14 +47,10 @@ NEAR_TOL = 1e-2     # positions of the rows near them
 
 
 def test_reduced_worm_period_matches_sph_tpu():
-    saved = native.available
-    native.available = lambda: False
-    try:
-        js = j_worm(JParams(**WORM))
-    finally:
-        native.available = saved
     jp, params = JParams(**WORM), params_from(JParams(**WORM))
-    scene = generate_worm_scene(params)
+    with scene_path(native=False):
+        js = j_worm(jp)
+        scene = generate_worm_scene(params)
     np.testing.assert_array_equal(scene.pos, js.pos)
     layout = scene.layout()
     cfg = W.compute_fastw_config(scene.pos, params, layout,
