@@ -274,11 +274,13 @@ them to the kernels the card ran, as the profiler records them):
    ranks) join the kernels' ``launches_per_step``;
 25. ``runtime.timing.profile_trace`` on the main path: the full worm
    through ``Simulator(engine="auto", device="cuda")``, the first period a
-   step at a time, one whole period (its graph's capture), then one period
-   replayed inside ``profile_trace`` (closed by ``session_tail``); the
+   step at a time, one whole period (its graph's capture) and one under
+   the tracer (its marked graph's capture), then one period replayed
+   inside ``profile_trace`` (closed by ``session_tail``); the
    Chrome trace it writes is read back and must hold a kernel record of
    each of the six pair kernels the path launches (records a kernel
-   printed beside its launches).
+   printed beside its launches) and the ranges of the program's spans
+   (the tracer is on within ``profile_trace``).
 
 Each phase prints its seconds. ``--only`` runs the named phases alone
 (native: 2b, small: 3-4, box: 5-6, rworm: 7, rworm_engine: 8, worm: 9-10,
@@ -3749,6 +3751,9 @@ def halo_phase(card, profile_steps):
 
 
 TRACE_STEPS = 30     # one period of the main path under profile_trace
+# the spans a graphed fastw period opens (runtime.timing's tracer)
+TRACE_SPANS = {"sim.step", "engine.period", "graph.stage", "graph.replay",
+               "graph.result", "sim.diag", "sim.sync"}
 
 
 def trace_phase(card, profile_steps):
@@ -3756,7 +3761,7 @@ def trace_phase(card, profile_steps):
     # trace read back
     import tempfile
 
-    from sph_tpu_torch.runtime.timing import profile_trace
+    from sph_tpu_torch.runtime.timing import profile_trace, tracing
 
     params = SimParams()
     sim = Simulator(generate_worm_scene(params), params, engine="auto",
@@ -3765,6 +3770,8 @@ def trace_phase(card, profile_steps):
     sim.step(period - 1)         # the first period a step at a time
     sim.step(1)
     sim.step(period)             # its graph's capture
+    with tracing():
+        sim.step(period)         # the tracer's graph (marked) captured
     tail = session_tail()
     with tempfile.TemporaryDirectory() as log_dir:
         t0 = time.perf_counter()
@@ -3783,16 +3790,20 @@ def trace_phase(card, profile_steps):
         if e.get("cat") == "kernel":
             kernels[e["name"]] = kernels.get(e["name"], 0) + 1
     records = pair_records(kernels)
+    names = {e.get("name") for e in events}
+    spans = TRACE_SPANS & names
     print(f"trace: {TRACE_STEPS} main-path steps under profile_trace in "
           f"{t_trace:.2f} s (the trace's export included), "
           f"{os.path.basename(files[0])}: {size} B, {len(events)} events, "
           f"{sum(kernels.values())} kernel records of {len(kernels)} "
           f"names; pair-kernel records {records} against launches "
-          f"{ {k: v * TRACE_STEPS for k, v in PER_STEP.items()} } "
-          f"[{card}]", flush=True)
+          f"{ {k: v * TRACE_STEPS for k, v in PER_STEP.items()} }; "
+          f"program spans {sorted(spans)} [{card}]", flush=True)
     for kind in PER_STEP:
         check(records.get(kind, 0) > 0,
               f"trace: no record of the {kind} kernel in the trace")
+    check(spans == TRACE_SPANS, f"trace: no range of the program's spans "
+          f"{sorted(TRACE_SPANS - spans)} in the trace")
     return None
 
 

@@ -16,6 +16,9 @@ The same subcommands, flags and output lines as ``python -m sph_tpu``; the
 reference's three flags map as there (``-l_to`` -> ``run --dump``,
 ``-l_from`` -> ``replay``, graphics -> ``run --render-every``). ``--device``
 (default cuda) picks the card's kernels or the CPU's plain versions.
+``-v`` turns ``runtime.timing``'s tracer on: each ``--report-every`` line
+is followed by that chunk's host ms by span, its device ms by mark with
+the device's idle share, and its counters.
 Rendering (``--render-every``, ``replay``) needs matplotlib and PIL.
 
 ``--engine halo`` shards the fast engine over the ranks of a process group:
@@ -98,7 +101,7 @@ def rank_device(backend: str, local_rank: int, n_cards: int) -> str:
 
 
 def cmd_run(args) -> int:
-    from .runtime import Simulator
+    from .runtime import Simulator, timing
 
     device, rank, joined = _join_ranks(args)
     say = print if rank == 0 else (lambda *a, **k: None)
@@ -115,7 +118,6 @@ def cmd_run(args) -> int:
         fast_config=fck or None, dump_dir=args.dump,
         dump_interval=args.dump_every,
         adaptive_resort=args.adaptive_resort,
-        log=say if args.verbose else None,
     )
     say(f"engine: {sim.engine}")
     if joined:
@@ -130,12 +132,18 @@ def cmd_run(args) -> int:
 
     chunk = max(1, args.report_every)
     done = 0
+    if args.verbose:
+        timing.enable()
     while done < args.steps:
         n = min(chunk, args.steps - done)
         ms = sim.step_blocking(n)
         done += n
         say(f"[[ step {sim.step_count} ]]  {ms / n:8.3f} ms/step "
             f"({1e3 / (ms / n):.1f} steps/s)")
+        if args.verbose:
+            for line in timing.report(timing.snapshot()):
+                say(line)
+            timing.reset()
         if args.render_every and sim.step_count % args.render_every == 0:
             from .viz import render_frame
 
@@ -153,6 +161,7 @@ def cmd_run(args) -> int:
                 time_step=params.time_step,
             )
             print(f"rendered {out}")
+    timing.disable()
     if args.checkpoint:
         sim.save(args.checkpoint)
         say(f"checkpoint -> {args.checkpoint}")
@@ -256,7 +265,10 @@ def main(argv=None) -> int:
                         "width (default: fast ccol, fastw 256)")
     p.add_argument("--resort-every", type=int, default=None,
                    help="steps between spatial resorts (default 30)")
-    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="after each report line, the chunk's host ms by "
+                        "span, device ms by mark and counters "
+                        "(runtime.timing's tracer)")
     p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("replay", help="render a dumped trajectory (-l_from)")

@@ -35,7 +35,18 @@ as the eager loop does.
 
 Every capture appends its record to :data:`CAPTURES` (steps, capture plus
 instantiate seconds, pool bytes, launches a replay), which measurement
-scripts read.
+scripts and the tracer read.
+
+Device marks: a graph captured for the tracer (``sph_tpu_torch.trace``;
+``marked``) records four CUDA timing events (``external``, so that the
+capture holds them as event nodes) at its period's start, after the sort
+(``sort_ctx`` and ``carry_of``), after the ``r_steps`` inner steps and
+after ``unsort_state``; each replay registers the three intervals between
+them (``period.sort``, ``period.steps``, ``period.unsort``). The runner
+keeps a marked and an unmarked graph of a period length apart and replays
+the one the tracer's state asks for, so that an untraced call replays a
+graph with no event node: the first traced call of a period length
+captures its marked graph, and replays it bitwise as the unmarked one.
 """
 from __future__ import annotations
 
@@ -44,6 +55,7 @@ import time
 
 import torch
 
+from .. import trace
 from ..ops import pack as pack_ops
 from ..ops import pair_kernels as pk
 from .state import FluidState
@@ -58,15 +70,26 @@ _CHANGING = ("pos", "vel", "muscle_activation", "step")
 CAPTURES: list[dict] = []
 
 
-def run_period(parts, r_steps: int, state: FluidState, springs, membranes):
+def run_period(parts, r_steps: int, state: FluidState, springs, membranes,
+               marks=None):
     """One resort period eagerly: (state after r_steps, diag), diag the
-    sort's overflow counts and the period's window drift."""
+    sort's overflow counts and the period's window drift. ``marks``: four
+    CUDA events, recorded at the start, after the sort, after the steps and
+    after the unsort."""
+    if marks:
+        marks[0].record()
     ctx, diag = parts.sort_ctx(state, springs, membranes)
     carry = parts.carry_of(ctx, state)
+    if marks:
+        marks[1].record()
     for _ in range(r_steps):
         carry = parts.inner_step(ctx, carry)
-    return (parts.unsort_state(ctx, carry, state),
-            dict(diag, window_drift=carry[-1]))
+    if marks:
+        marks[2].record()
+    out = parts.unsort_state(ctx, carry, state)
+    if marks:
+        marks[3].record()
+    return out, dict(diag, window_drift=carry[-1])
 
 
 def period_runner(parts, n_steps: int, resort_every: int,
@@ -87,16 +110,20 @@ def period_runner(parts, n_steps: int, resort_every: int,
         graphed = cuda_graph and state.pos.device.type == "cuda"
         diag = {}
         for r_steps in periods:
-            if graphed:
-                key = (r_steps, state.pos.device)
-                if key not in graphs:
-                    graphs[key] = PeriodGraph(parts, r_steps)
-                state, d = graphs[key](state, springs, membranes)
-            else:
-                state, d = run_period(parts, r_steps, state, springs,
-                                      membranes)
-            diag = {k: torch.maximum(diag[k], v) if k in diag else v
-                    for k, v in d.items()}
+            with trace.span("engine.period"):
+                trace.count("engine.periods")
+                trace.count("engine.steps", r_steps)
+                if graphed:
+                    marked = trace.on()
+                    key = (r_steps, state.pos.device, marked)
+                    if key not in graphs:
+                        graphs[key] = PeriodGraph(parts, r_steps, marked)
+                    state, d = graphs[key](state, springs, membranes)
+                else:
+                    state, d = run_period(parts, r_steps, state, springs,
+                                          membranes)
+                diag = {k: torch.maximum(diag[k], v) if k in diag else v
+                        for k, v in d.items()}
         return state, diag
 
     return run
@@ -121,11 +148,12 @@ class PeriodGraph:
     """One resort period of ``r_steps`` steps, captured as a CUDA graph at
     its first call and replayed at every later one (see the module
     docstring). ``launches`` holds the counts its capture added, one dict
-    a counter."""
+    a counter. ``marked``: the graph records the tracer's four timing
+    events, ``marks`` (made at the capture; None unmarked)."""
 
-    def __init__(self, parts, r_steps: int):
-        self.parts, self.r_steps = parts, r_steps
-        self.graph = self.launches = None
+    def __init__(self, parts, r_steps: int, marked: bool = False):
+        self.parts, self.r_steps, self.marked = parts, r_steps, marked
+        self.graph = self.launches = self.marks = None
         self._in = self._args = self._refs = self._out = None
 
     def eager(self, state, springs, membranes):
@@ -138,15 +166,24 @@ class PeriodGraph:
     def __call__(self, state, springs, membranes):
         """(state, diag) after one replay of the period (captured first at
         the first call); the state must be on a CUDA device."""
-        with torch.cuda.device(state.pos.device):
-            self._stage(state, springs, membranes)
+        dev = state.pos.device
+        with torch.cuda.device(dev):
+            with trace.span("graph.stage"), trace.mark("facade.eager", dev):
+                self._stage(state, springs, membranes)
             if self.graph is None:
-                self._capture()
-            self.graph.replay()
-        for counter, add in zip(_COUNTERS, self.launches):
-            for k, v in add.items():
-                counter[k] += v
-        return self._result(self._out)
+                with trace.span("graph.capture"):
+                    self._capture()
+            trace.before_replay(self.marks)
+            with trace.span("graph.replay"):
+                self.graph.replay()
+            trace.count("graph.replays")
+            trace.replayed(self.marks, dev)
+            for counter, add in zip(_COUNTERS, self.launches):
+                for k, v in add.items():
+                    counter[k] += v
+            with trace.span("graph.result"), trace.mark("facade.eager",
+                                                         dev):
+                return self._result(self._out)
 
     def _stage(self, state, springs, membranes):
         refs = _refs(state, springs, membranes)
@@ -166,7 +203,8 @@ class PeriodGraph:
             getattr(self._in, f).copy_(getattr(state, f))
 
     def _body(self):
-        return run_period(self.parts, self.r_steps, self._in, *self._args)
+        return run_period(self.parts, self.r_steps, self._in, *self._args,
+                          marks=self.marks)
 
     def _result(self, out):
         state, diag = out
@@ -177,6 +215,9 @@ class PeriodGraph:
 
     def _capture(self):
         before = [dict(c) for c in _COUNTERS]
+        if self.marked:
+            self.marks = [torch.cuda.Event(enable_timing=True,
+                                           external=True) for _ in range(4)]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):

@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import SimParams
 from ..constants import MUSCLE_COUNT
 from ..scene.io import TrajectoryDumper
@@ -66,7 +67,6 @@ class Simulator:
         async_io: bool = True,
         drift_threshold_h: float = 0.25,
         distributed_resort: bool = False,
-        log=None,
     ):
         """engine: "auto" (see :func:`resolve_auto_engine`), "exact" (the
         neighbour-list engine, the reference's nearest 32 within h;
@@ -107,7 +107,13 @@ class Simulator:
         resort_every, /2 and /4; on the card each level is one period
         graph. Costs one host read per chunk.
 
-        log: a callable for the step timer's ``report`` lines."""
+        The tracer (``sph_tpu_torch.trace``), when on, records the
+        facade's spans (``sim.step``, ``sim.sync`` a blocking scalar read,
+        ``sim.diag``, ``sim.read`` and ``sim.read.copy``,
+        ``sim.check_overflow``, ``sim.dump``), its counters
+        (``sim.host_syncs``, ``sim.read_bytes``) and device marks
+        (``facade.eager`` for the diagnostics' maxima, ``read.copy`` for
+        the copy into host memory)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is "
@@ -187,7 +193,7 @@ class Simulator:
 
             self.state = shard_state(self.state, self._comm)
         self._reset_diag()
-        self.timer = StepTimer(device=self.device, log=log)
+        self.timer = StepTimer(device=self.device)
         # the files are written by one rank (rank 0 of the halo engine)
         self._writes = self._comm is None or self._comm.rank == 0
         self._dumping = bool(dump_dir)
@@ -283,18 +289,21 @@ class Simulator:
             remaining -= size
             # device-side max across chunks, no host sync (per chunk: the
             # drift of each resort period, as sph_tpu's _track_drift)
-            for k in ("shell_overflow", "tile_overflow", "halo_overflow",
-                      "resort_overflow", "window_drift"):
-                if k in diag:
-                    setattr(self, "_" + k, torch.maximum(
-                        getattr(self, "_" + k), diag[k]))
+            with trace.span("sim.diag"), trace.mark("facade.eager",
+                                                     self.device):
+                for k in ("shell_overflow", "tile_overflow", "halo_overflow",
+                          "resort_overflow", "window_drift"):
+                    if k in diag:
+                        setattr(self, "_" + k, torch.maximum(
+                            getattr(self, "_" + k), diag[k]))
             self._last_drift = diag["window_drift"]
             if self._adaptive and size > 1:
                 self._climb_ladder(chunk)
         # fastw's shell overflow = moving-wall pairs DROPPED (wrong forces
         # near the wall with no other signal) — loud at the run site: one
         # scalar host sync per user-level step() call
-        ovf_s = int(self._shell_overflow) if self.engine == "fastw" else 0
+        ovf_s = self._sync(self._shell_overflow) if self.engine == "fastw" \
+            else 0
         if ovf_s:
             logger.error(
                 "fastw shell overflowed by %d wall row(s) by step %d — "
@@ -307,14 +316,14 @@ class Simulator:
             # diagnostic: the distributed resort drops rows that overrun its
             # migration buffers, and clipped halo windows drop pairs. Every
             # rank holds the same counts, so every rank logs
-            ovf_r = int(self._resort_overflow)
+            ovf_r = self._sync(self._resort_overflow)
             if ovf_r:
                 logger.error(
                     "distributed resort DROPPED %d particle(s) by step %d "
                     "(migration buffers overran mig_cap) — mass is lost; "
                     "raise mig_cap (see measure_migration_pad) or lower "
                     "resort_every", ovf_r, int(state.step))
-            ovf_h = int(self._halo_overflow)
+            ovf_h = self._sync(self._halo_overflow)
             if ovf_h:
                 logger.error(
                     "halo windows clipped %d row(s) by step %d — pairs are "
@@ -322,10 +331,20 @@ class Simulator:
                     ovf_h, int(state.step))
         return state
 
+    def _sync(self, value: torch.Tensor):
+        """A device scalar read into host memory: a host sync, traced as
+        ``sim.sync``; the stream is idle after it, so it anchors the
+        tracer's device marks."""
+        with trace.span("sim.sync"):
+            trace.count("sim.host_syncs")
+            out = value.item()
+            trace.anchor(self.device)
+        return out
+
     def _climb_ladder(self, chunk: int) -> None:
         """One scalar host read a chunk: the chunk's pair-approach bound
         decides the NEXT period (sph_tpu's rule, hysteresis included)."""
-        ratio = 2.0 * float(self._last_drift) / self.params.h
+        ratio = 2.0 * self._sync(self._last_drift) / self.params.h
         lv = self._chunk_levels
         i = lv.index(chunk) if chunk in lv else 0
         if ratio > self._drift_threshold_h and i + 1 < len(lv):
@@ -342,6 +361,10 @@ class Simulator:
         """Advance n steps; with a ``dump_dir``, run to each dump boundary
         and dump a frame there (as sph_tpu does: an interval shorter than
         the resort period makes every chunk of the run shorter too)."""
+        with trace.span("sim.step"):
+            self._step(n)
+
+    def _step(self, n: int) -> None:
         if not self._dumping:
             self.state = self._run(n)
             return
@@ -360,6 +383,10 @@ class Simulator:
         """Append the current positions to the trajectory; with ``check``,
         read the overflow diagnostics too (the positions are on the host
         then anyway)."""
+        with trace.span("sim.dump"):
+            self._dump(check)
+
+    def _dump(self, check: bool) -> None:
         if self._writer is not None:
             # the frame's formatting overlaps the next chunk on the IO thread
             pos = self._full_state().pos
@@ -396,6 +423,10 @@ class Simulator:
         distributed resort, ``resort_overflow`` (dropped particles).
         ``pos``: the current positions on the host, where the caller has
         them."""
+        with trace.span("sim.check_overflow"):
+            return self._check_overflow(pos)
+
+    def _check_overflow(self, pos) -> dict:
         if pos is None and self.engine in ("exact", "fast", "halo"):
             pos = self.get_position()
         if self.engine == "exact":
@@ -458,7 +489,14 @@ class Simulator:
         return gather_state(self.state, self._comm)
 
     def get_position(self) -> np.ndarray:
-        return self._full_state().pos.cpu().numpy()
+        with trace.span("sim.read"):
+            pos = self._full_state().pos
+            with trace.span("sim.read.copy"), trace.mark("read.copy",
+                                                         self.device):
+                out = pos.cpu().numpy()
+            trace.count("sim.read_bytes", out.nbytes)
+            trace.anchor(self.device)
+        return out
 
     def get_velocity(self) -> np.ndarray:
         return self._full_state().vel.cpu().numpy()

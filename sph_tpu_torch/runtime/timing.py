@@ -1,9 +1,16 @@
-"""Wall-clock step timing and profiler traces (counterpart of
-``sph_tpu/runtime/timing.py``).
+"""Wall-clock step timing, profiler traces, and the tracer's calls.
+
+``StepTimer`` and ``profile_trace`` are the counterparts of
+``sph_tpu/runtime/timing.py``. The tracer lives in ``sph_tpu_torch.trace``
+(below every layer, so that the engine can record into it); its calls for
+the user (:func:`tracing`, :func:`enable`, :func:`disable`, :func:`span`,
+:func:`count`, :func:`snapshot`, :func:`reset`, :func:`summary`,
+:func:`report`) are re-exported here.
 
 PyTorch returns before the device finishes, so on a CUDA device every
-reading synchronises first (``torch.cuda.synchronize``): a reading is the
-time until the queued work is done, not the time to enqueue it.
+``StepTimer`` reading synchronises first (``torch.cuda.synchronize``): a
+reading is the time until the queued work is done, not the time to enqueue
+it.
 """
 from __future__ import annotations
 
@@ -12,18 +19,20 @@ import time
 
 import torch
 
+from ..trace import (count, disable, enable, report, reset, snapshot, span,
+                     summary, tracing)
+
+__all__ = ["StepTimer", "profile_trace", "count", "disable", "enable",
+           "report", "reset", "snapshot", "span", "summary", "tracing"]
+
 
 class StepTimer:
-    """Wall-clock milliseconds since the last ``refresh``; ``report``
-    prints (through ``log``) and accumulates named sections. ``device``:
-    where the timed work runs (the card unless the caller names the
-    CPU)."""
+    """Wall-clock milliseconds since the last ``refresh``. ``device``: where
+    the timed work runs (the card unless the caller names the CPU)."""
 
-    def __init__(self, device="cuda", log=None):
+    def __init__(self, device="cuda"):
         self._cuda = torch.device(device).type == "cuda"
-        self._log = log
-        self._t0 = self._t1 = time.perf_counter()
-        self.sections: dict[str, float] = {}
+        self._t0 = time.perf_counter()
 
     def _now(self) -> float:
         if self._cuda:
@@ -31,18 +40,7 @@ class StepTimer:
         return time.perf_counter()
 
     def refresh(self) -> None:
-        self._t0 = self._t1 = self._now()
-
-    def report(self, label: str) -> float:
-        """Milliseconds since the last refresh or report, added to
-        ``sections[label]`` and logged."""
-        now = self._now()
-        ms = (now - self._t1) * 1e3
-        self._t1 = now
-        self.sections[label] = self.sections.get(label, 0.0) + ms
-        if self._log:
-            self._log(f"{label}: \t{ms:9.3f} ms")
-        return ms
+        self._t0 = self._now()
 
     @property
     def elapsed_ms(self) -> float:
@@ -53,10 +51,11 @@ class StepTimer:
 def profile_trace(log_dir: str, device="cuda"):
     """Record a ``torch.profiler`` trace of the block (the counterpart of
     sph_tpu's ``jax.profiler`` trace): CPU and CUDA activity on the card,
-    CPU activity only when ``device`` is the CPU. On exit the card is
-    drained and a Chrome trace (``<host>_<pid>.<stamp>.pt.trace.json``: open
-    it in Perfetto or chrome://tracing) is written into ``log_dir``.
-    Yields the profiler."""
+    CPU activity only when ``device`` is the CPU. The tracer is on within
+    the block, so the program's spans appear as ranges beside the kernels.
+    On exit the card is drained and a Chrome trace
+    (``<host>_<pid>.<stamp>.pt.trace.json``: open it in Perfetto or
+    chrome://tracing) is written into ``log_dir``. Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
     from torch.profiler import tensorboard_trace_handler
 
@@ -65,6 +64,7 @@ def profile_trace(log_dir: str, device="cuda"):
                                            if cuda else [])
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
-        yield prof
+        with tracing():
+            yield prof
         if cuda:
             torch.cuda.synchronize()

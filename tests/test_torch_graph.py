@@ -249,6 +249,20 @@ class _FakeStream:
         pass
 
 
+class _FakeEvent:
+    """Stands in for ``torch.cuda.Event``: counts the events made and
+    their records."""
+
+    made = records = 0
+
+    def __init__(self, **kwargs):
+        self.kwargs = kwargs
+        _FakeEvent.made += 1
+
+    def record(self, stream=None):
+        _FakeEvent.records += 1
+
+
 class _FakeGraph:
     """Stands in for ``torch.cuda.CUDAGraph``: a replay runs nothing."""
 
@@ -262,8 +276,11 @@ class _FakeGraph:
 @pytest.fixture
 def fake_cuda(monkeypatch):
     """The ``torch.cuda`` calls of a capture, on the CPU: the warm-up and
-    the capture run the period eagerly, a replay runs nothing."""
+    the capture run the period eagerly, a replay runs nothing, an event
+    is counted and counts its records."""
     noop = contextlib.nullcontext
+    monkeypatch.setattr(_FakeEvent, "made", 0)
+    monkeypatch.setattr(_FakeEvent, "records", 0)
     for name, value in (("Stream", _FakeStream),
                         ("stream", lambda s: noop()),
                         ("current_stream", _FakeStream),
@@ -272,6 +289,7 @@ def fake_cuda(monkeypatch):
                         ("memory_reserved", lambda *a: 0),
                         ("device", lambda d: noop()),
                         ("CUDAGraph", _FakeGraph),
+                        ("Event", _FakeEvent),
                         ("graph", lambda g: noop())):
         monkeypatch.setattr(torch.cuda, name, value)
 
