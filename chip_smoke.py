@@ -160,7 +160,19 @@ them to the kernels the card ran, as the profiler records them):
    pair form's charge beside it) and the device time of an empty launch;
    the host microseconds of one pair launch; the first spring design's
    launch takes the shared-memory opt-in branch (above 48 KB). Checks no
-   spill in the shipped ring and list kernels;
+   spill in the shipped ring and list kernels. Then the box cull on the
+   same launches: every ring kernel's outputs bitwise (their bits) those
+   of its unculled form (``sph_pair_<kind>_nocull``, which only this phase
+   calls), the boxes its box kernel wrote equal to ``chunk_boxes``, its
+   device counters of one traced launch (chunks tested and culled)
+   against the plain model ``pair_kernels.cull_counts``, and the two timed
+   in turns (unculled, culled, culled, unculled; CUDA events, the box
+   kernel included) and by profiler device time (the ring and box kernels
+   apart; the box kernel's plain version by CUDA events), per launch and
+   per step; the dam-break's launches at ccol 1024 (tiles of 64 chunks,
+   which take the unculled kernel) bitwise the same; the box kernel's
+   ``kernels`` entry (launches on
+   the worm's main path, held to one a ring launch in every timed run);
 20. the compiled resort period: the full worm through
    ``Simulator(engine="auto", device="cuda")`` graphed (the default) and
    with ``cuda_graph=False``, 60 steps from the same state (the first
@@ -312,7 +324,7 @@ import time
 import numpy as np
 import torch
 
-from sph_tpu_torch import SimParams, bench
+from sph_tpu_torch import SimParams, bench, trace
 from scipy.spatial import cKDTree
 
 from sph_tpu_torch.constants import (BOUNDARY_PARTICLE, ELASTIC_PARTICLE,
@@ -845,15 +857,19 @@ def device_ms(fn, reps=50, tries=3, flush=None):
 
 
 def _mean_ms(records, reps):
-    """Mean milliseconds of the (launches, device us) ``records`` of
-    ``reps`` one-kernel calls, or None unless between half and all of
-    the launches were recorded."""
-    n = sum(c for c, _ in records)
-    if not reps // 2 <= n <= reps:
-        print(f"  device time not measured: the profiler kept {n} kernel "
-              f"records of {reps} calls", flush=True)
-        return None
-    return sum(us for _, us in records) / n / 1e3
+    """Mean milliseconds a call of the (launches, device us) ``records``,
+    one a kernel name, of ``reps`` calls that launch each kernel once (a
+    culled ring launch: its box kernel and its ring kernel): the sum of
+    each kernel's mean, or None unless between half and all of each
+    kernel's launches were recorded."""
+    if not records:
+        records = [(0, 0.0)]
+    for n, _ in records:
+        if not reps // 2 <= n <= reps:
+            print(f"  device time not measured: the profiler kept {n} "
+                  f"kernel records of {reps} calls", flush=True)
+            return None
+    return sum(us / n for n, us in records) / 1e3
 
 
 def ab_device_ms(prev, new, reps=50, tries=3):
@@ -967,14 +983,23 @@ def check_run(sim, scene, steps, launches, per_step, label):
 
 def timed_run(sim, steps):
     """(seconds, launches by kind) of ``steps`` steps ending in a device
-    synchronize, the launch counts set to 0 just before."""
+    synchronize, the launch counts set to 0 just before. The box kernel's
+    launches (``pk.BOX_LAUNCHES``) are held to one a ring launch and kept
+    in ``BOX_LAUNCHED``."""
     torch.cuda.synchronize()
-    for k in pk.LAUNCHES:
-        pk.LAUNCHES[k] = 0
+    for counter in (pk.LAUNCHES, pk.BOX_LAUNCHES):
+        for k in counter:
+            counter[k] = 0
     t0 = time.perf_counter()
     sim.step(steps)
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, dict(pk.LAUNCHES)
+    dt, launches = time.perf_counter() - t0, dict(pk.LAUNCHES)
+    ring = sum(n for k, n in launches.items()
+               if k.removesuffix("_sub") in pk.RING)
+    BOX_LAUNCHED[0] = pk.BOX_LAUNCHES["chunk_boxes"]
+    check(BOX_LAUNCHED[0] == ring, f"{BOX_LAUNCHED[0]} box kernel launches "
+          f"for {ring} ring launches")
+    return dt, launches
 
 
 def worm_integrity(sim, scene, params, parts=None):
@@ -1017,18 +1042,20 @@ def pair_records(kernels):
     """``pk.LAUNCHES`` key -> the device records of the pair kernels among
     ``kernels`` (device name -> records): ``spring_list`` is the spring
     kind; a ``pair_ring`` or ``pair_pass`` kernel's kind is its functor's,
-    with ``_sub`` where its last template argument (Gated) is true."""
+    with ``_sub`` where its Gated template argument (pair_pass's second,
+    pair_ring's seventh) is true."""
     out = {}
     for name, n in kernels.items():
         if "spring_list" in name:
             key = "spring"
         else:
-            m = re.search(r"(?:pair_ring|pair_pass)<(?:\(anonymous "
-                          r"namespace\)::)?(\w+),.*?(true|false)>", name)
+            m = re.search(r"(pair_ring|pair_pass)<(?:\(anonymous "
+                          r"namespace\)::)?([^>]*)>", name)
             if m is None:
                 continue
-            key = FUNCTOR_KIND[m.group(1)] + ("_sub" if m.group(2) == "true"
-                                              else "")
+            args = [a.strip() for a in m.group(2).split(",")]
+            gated = args[6 if m.group(1) == "pair_ring" else 1] == "true"
+            key = FUNCTOR_KIND[args[0]] + ("_sub" if gated else "")
         out[key] = out.get(key, 0) + n
     return out
 
@@ -1355,6 +1382,7 @@ def worm_phases(card, profile_steps):
     # one whole period more: the capture of its graph is set-up, untimed
     sim.step(sim._fast_cfg.resort_every)
     dt, launches = timed_run(sim, WORM_STEPS)
+    MAIN_BOX_LAUNCHES[0] = BOX_LAUNCHED[0]
     ms_step = dt * 1e3 / WORM_STEPS
     ovf = check_run(sim, scene, WORM_STEPS, launches, PER_STEP, "worm")
     worm_integrity(sim, scene, params)
@@ -1407,8 +1435,8 @@ def worm_phases(card, profile_steps):
     return dict(
         kernels=kernel_entries(per_kind, launches,
                                "one step's launches, fastw, full worm"),
-        launches={"worm_fastw": {k: v / WORM_STEPS
-                                 for k, v in launches.items()}})
+        launches={"worm_fastw": {k: v / WORM_STEPS for k, v in (
+            launches | {"chunk_boxes": BOX_LAUNCHED[0]}).items()}})
 
 
 def kernel_entries(per_kind, launches, scope):
@@ -1673,8 +1701,8 @@ def dam_break_phases(card, profile_steps):
     return dict(
         kernels=kernel_entries({"density": per_kind["density"]}, launches,
                                "one step's launches, fast, dam-break"),
-        launches={"dambreak_fast": {k: v / DAM_STEPS
-                                    for k, v in launches.items()}})
+        launches={"dambreak_fast": {k: v / DAM_STEPS for k, v in (
+            launches | {"chunk_boxes": BOX_LAUNCHED[0]}).items()}})
 
 
 def fast_worm_phases(card, profile_steps):
@@ -1974,9 +2002,14 @@ FUNCTORS = {"density": "Density", "rho_star": "RhoStar",
 # them (5, 10, 14, 15); phase 19 records what is missing from one resort
 # period of the path (``--only ab``)
 AB_INPUTS = {}
+# the dam-break's (sim, state) its ring inputs were recorded from
+AB_DAM_SIM = [None]
 AB_LABELS = ("worm", "box", "dam", "fast_worm")
 AB_KINDS = (*pk.RING, "spring")
 AB_REPS = 20
+# the box kernel's launches in the last timed_run; the worm main path's
+BOX_LAUNCHED = [0]
+MAIN_BOX_LAUNCHES = [0]
 # the ptxas report of the library (filled in main)
 BUILD_REPORT = []
 # the main path's simulator, profiled after the last phase (--profile-steps)
@@ -1986,22 +2019,25 @@ PROFILE_SIM = []
 def describe(mangled):
     """(driver, kind, label) of a kernel from its mangled name."""
     driver = next((d for d in ("pair_ring", "pair_pass", "spring_list",
-                               "pack_rows")
+                               "pack_rows", "pair_ring_boxes")
                    if f"{len(d)}{d}" in mangled), "?")
     kind = next((k for k, f in FUNCTORS.items() if f"{len(f)}{f}" in mangled),
                 "")
     ints = [int(x) for x in re.findall(r"Li(\d+)E", mangled)]
     bools = [int(x) for x in re.findall(r"Lb([01])E", mangled)]
-    if driver == "pair_ring" and len(ints) >= 4 and len(bools) >= 2:
+    if driver == "pair_ring" and len(ints) >= 5 and len(bools) >= 2:
         label = (f"pair_ring<{FUNCTORS[kind]}, R {ints[0]}, TPR {ints[1]}, "
                  f"stages {ints[2]}, rows/CTA {ints[3]}, exit {bools[0]}, "
-                 f"gated {bools[1]}>")
-        key = (kind, bools[1])
+                 f"gated {bools[1]}, chunk {ints[4]}>")
+        # the unculled form (chunk 0) apart from the shipped kernel
+        key = (kind, bools[1]) if ints[4] else (kind, bools[1], "nocull")
     elif driver == "pair_pass" and bools:
         label = f"pair_pass<{FUNCTORS[kind]}, gated {bools[0]}>"
         key = (kind, bools[0])
     elif driver == "spring_list":
         label, key = "spring_list<Spring>", ("spring", 0)
+    elif driver == "pair_ring_boxes" and ints:
+        label, key = f"pair_ring_boxes<chunk {ints[0]}>", (driver,)
     elif driver == "pack_rows":
         elem = "float4" if "6float4" in mangled else "float"
         label, key = f"pack_rows<{elem}>", (driver, elem)
@@ -2086,6 +2122,8 @@ def fast_ab_inputs(params, sim, state, label):
                 if kind in calls:
                     out[kind] = (calls[kind], FAST_PASSES[kind])
     AB_INPUTS[label] = out
+    if label == "dam":
+        AB_DAM_SIM[0] = (sim, state)
 
 
 def ab_record(label):
@@ -2183,6 +2221,138 @@ def host_launch_us(call, reps=200):
     return out
 
 
+def nocull_call(p, tables, own, slab):
+    return pk._call(p, tables, own, slab, entry=f"sph_pair_{p.kind}_nocull")
+
+
+def split_device_ms(fn, reps=50, tries=3):
+    """(ring kernel, box kernel) mean device milliseconds a call of ``fn``
+    (a culled ring launch: the box kernel, then the ring kernel), as
+    ``device_ms`` takes them; None for each unless a session kept enough
+    records of both."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    for _ in range(tries):
+        kernels = profiled_kernels(run)
+        ms = [_mean_ms([v for k, v in kernels.items()
+                        if ("pair_ring_boxes" in k) == box], reps)
+              for box in (False, True)]
+        if None not in ms:
+            return ms
+    return [None, None]
+
+
+def cull_check(label, name, call):
+    """The shipped ring kernel (with its box cull) against its unculled
+    form (``sph_pair_<kind>_nocull``) on one launch: the outputs' bits
+    equal; where the pass culls, the boxes its box kernel left in
+    ``pk.box_buffer`` equal ``pk.chunk_boxes`` of the slab; its device
+    counters (one launch with
+    the tracer on) equal the plain model ``pk.cull_counts`` (the kernel
+    may fuse the gap's squares, the model does not: a chunk at the
+    threshold may fall either way). Returns (chunks tested, culled)."""
+    p, tables, own, slab = call[:4]
+    new = pk._call(p, tables, own, slab)
+    n_boxes = -(-slab.shape[1] // pk.CHUNK)
+    boxes = pk.box_buffer(own.device, n_boxes)[:n_boxes].clone()
+    old = nocull_call(p, tables, own, slab)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(new, old))
+    check(same, f"cull {label} {name}: the culled kernel's outputs are not "
+          "bitwise its unculled form's")
+    want = pk.chunk_boxes(slab, pk._RING_ROW0.get(p.kind, 0), pk.CHUNK)
+    check(not p.culls or torch.equal(boxes, want), f"cull {label} {name}: "
+          "the box kernel's boxes differ from chunk_boxes")
+    before = pk.cull_counters()
+    with trace.tracing():
+        pk._call(p, tables, own, slab)
+        torch.cuda.synchronize()
+    after = pk.cull_counters()
+    tested, culled = (after.get(f"pair.{p.kind}.{k}", 0)
+                      - before.get(f"pair.{p.kind}.{k}", 0)
+                      for k in ("chunks", "culled"))
+    m_tested, m_culled = pk.cull_counts(p, tables, own, slab)
+    check(tested == m_tested
+          and abs(culled - m_culled) <= 2 + m_tested // 10000,
+          f"cull {label} {name}: device counters {tested} tested, {culled} "
+          f"culled; the model {m_tested}, {m_culled}")
+    return tested, culled, m_tested, m_culled
+
+
+def cull_ab(label, name, call, mult, card, totals):
+    """``cull_check`` on one recorded launch, then the culled and unculled
+    kernels timed in turns (unculled, culled, culled, unculled; CUDA
+    events around ``AB_REPS`` calls, the culled call's box kernel
+    included) and by torch.profiler device time (the culled call's ring
+    and box kernels apart), and the box kernel's plain version
+    (``pk.chunk_boxes``) by CUDA events and its byte bound. Adds a step's
+    share (``mult`` launches) to ``totals``."""
+    p, tables, own, slab = call[:4]
+    tested, culled, m_tested, m_culled = cull_check(label, name, call)
+    ts = [time_ms(f, AB_REPS) for f in (
+        lambda: nocull_call(p, tables, own, slab),
+        lambda: pk._call(p, tables, own, slab),
+        lambda: pk._call(p, tables, own, slab),
+        lambda: nocull_call(p, tables, own, slab))]
+    old_ms, new_ms = (ts[0] + ts[3]) / 2, (ts[1] + ts[2]) / 2
+    old_dev = device_ms(lambda: nocull_call(p, tables, own, slab))
+    ring_dev, box_dev = split_device_ms(lambda: pk._call(p, tables, own,
+                                                          slab))
+    row0 = pk._RING_ROW0.get(p.kind, 0)
+    box_plain = time_ms(lambda: pk.chunk_boxes(slab, row0, pk.CHUNK),
+                        AB_REPS)
+    n_boxes = -(-slab.shape[1] // pk.CHUNK)
+    box_bound = (12 * slab.shape[1] + 32 * n_boxes) / PEAK_BYTES_S * 1e3
+    share = culled / max(tested, 1)
+    print(f"  cull {label:9s} {name:12s} bitwise True, boxes True; chunks "
+          f"tested {tested}, culled {culled} ({share:.4f}; the model "
+          f"{m_tested}, {m_culled}); unculled {ts[0]:.4f} / {ts[3]:.4f} ms, "
+          f"culled {ts[1]:.4f} / {ts[2]:.4f} ms, x{old_ms / new_ms:.3f}; "
+          f"device unculled {fmt_ms(old_dev)}, culled {fmt_ms(ring_dev)} + "
+          f"box {fmt_ms(box_dev)} ms (plain {box_plain:.4f}, bound "
+          f"{box_bound:.5f}) (x{mult}/step) [{card}]", flush=True)
+    group = p.kind if label in ("worm", "box") else name
+    acc = totals.setdefault((label, group), dict(
+        old=0.0, new=0.0, old_dev=0.0, ring_dev=0.0, box_dev=0.0,
+        box_plain=0.0, box_bound=0.0, tested=0, culled=0))
+    acc["old"] += mult * old_ms
+    acc["new"] += mult * new_ms
+    for key, ms in (("old_dev", old_dev), ("ring_dev", ring_dev),
+                    ("box_dev", box_dev)):
+        acc[key] = (None if ms is None or acc[key] is None
+                    else acc[key] + mult * ms)
+    acc["box_plain"] += mult * box_plain
+    acc["box_bound"] += mult * box_bound
+    acc["tested"] += mult * tested
+    acc["culled"] += mult * culled
+
+
+def wide_tiles(card):
+    """Tiles wider than 32 chunks, which the shipped entry points send to
+    the unculled kernel: the dam-break's launches at ccol and ccol_c 1024
+    from the recorded state, each through ``cull_check`` (no chunk
+    tested)."""
+    params = SimParams()
+    sim, state = AB_DAM_SIM[0]
+    cfg = dataclasses.replace(sim._fast_cfg, ccol=1024, ccol_c=1024)
+    calls = record_fast_inputs(params, sim.layout, cfg, state, sim.springs,
+                               sim.membranes)
+    for name, call in sorted(calls.items()):
+        if call[0].kind in pk.RING:
+            tested, culled, _, _ = cull_check("dam1024", name, call)
+            check(tested == 0, f"cull dam ccol 1024 {name}: {tested} chunks "
+                  "tested")
+            print(f"  cull dam ccol {call[0].ccol} {name:9s} bitwise True, "
+                  f"unculled kernel (chunks tested {tested}) [{card}]",
+                  flush=True)
+
+
 def ab_phase(card, profile_steps):
     # 19. the redesigned kernels (the ring driver's, the spring list)
     # against their first designs (pair_pass) on every recorded launch:
@@ -2198,11 +2368,13 @@ def ab_phase(card, profile_steps):
     floor_ms = launch_floor_ms()
     print(f"  ab device time of an empty launch (one-element add_, "
           f"torch.profiler): {fmt_ms(floor_ms)} ms [{card}]", flush=True)
-    totals, scales = {}, {}
+    totals, scales, cull_totals = {}, {}, {}
     for label in AB_LABELS:
         for name, (call, mult) in sorted(AB_INPUTS[label].items()):
             p, tables, own, slab = call[:4]
             ring = pk.RING.get(p.kind)
+            if ring is not None:
+                cull_ab(label, name, call, mult, card, cull_totals)
             # the list kernel keeps one thread a row
             bitwise = ring is None or ring.tpr == 1
             if ring is None:
@@ -2287,6 +2459,39 @@ def ab_phase(card, profile_steps):
               f"the new kernel's time (all-pairs or pair-form charge "
               f"{a['all_pairs']:.5f}) [{card}]", flush=True)
 
+    for (label, group), a in sorted(cull_totals.items()):
+        print(f"  cull {label:9s} {group:12s} per step: unculled "
+              f"{a['old']:.4f} ms, culled {a['new']:.4f} ms "
+              f"(x{a['old'] / a['new']:.3f}); device unculled "
+              f"{fmt_ms(a['old_dev'])}, culled {fmt_ms(a['ring_dev'])} + box "
+              f"{fmt_ms(a['box_dev'])} ms (plain {a['box_plain']:.4f}, "
+              f"bound {a['box_bound']:.5f}); chunks culled "
+              f"{a['culled'] / max(a['tested'], 1):.4f} of "
+              f"{a['tested']} [{card}]", flush=True)
+    wide_tiles(card)
+    # the box kernel's entry: one step of the fastw worm's launches (the
+    # main path), its launches counted there; device time only, since the
+    # ring kind's entry point launches it with its ring kernel
+    worm = [a for (label, _), a in cull_totals.items() if label == "worm"]
+    box_dev = [a["box_dev"] for a in worm]
+    box_entry = dict(
+        name="chunk_boxes", route="cuda", source=SOURCE, replaces=None,
+        launches=MAIN_BOX_LAUNCHES[0], max_abs_err=0.0,
+        ms=None if None in box_dev else sum(box_dev),
+        plain_ms=sum(a["box_plain"] for a in worm),
+        bound_ms=sum(a["box_bound"] for a in worm), bound_by="bytes",
+        library_ms=None,
+        ms_scope="one step's launches, fastw, full worm: torch.profiler "
+                 "device time of pair_ring_boxes (launched with each ring "
+                 "kernel, so CUDA events cannot take it alone); plain_ms "
+                 "by CUDA events around the plain version's calls",
+        registers=_regs(next((r for r in BUILD_REPORT
+                              if r["driver"] == "pair_ring_boxes"), None)))
+    print(f"  box kernel a worm step: device {fmt_ms(box_entry['ms'])} ms, "
+          f"plain {box_entry['plain_ms']:.4f} ms, bound "
+          f"{box_entry['bound_ms']:.5f} ms; {box_entry['launches']} "
+          f"launches on the main path [{card}]", flush=True)
+
     def step_total(label, groups):
         """One step's totals over the fast-engine groups (or a fastw
         kind) of ``label``."""
@@ -2320,7 +2525,14 @@ def ab_phase(card, profile_steps):
         cur = shipped_kernel(kind, gated)
         prev = next((r for r in BUILD_REPORT if r["driver"] == "pair_pass"
                      and r["key"] == (kind, int(gated))), None)
-        return dict(prev_ms=a["prev"], ab_ms=a["new"],
+        c = {}
+        if kind in pk.RING:
+            cs = [cull_totals[(label, g)] for g in groups]
+            c = dict(nocull_ms=sum(x["old"] for x in cs),
+                     cull_ms=sum(x["new"] for x in cs),
+                     culled_share=sum(x["culled"] for x in cs)
+                     / max(sum(x["tested"] for x in cs), 1))
+        return dict(prev_ms=a["prev"], ab_ms=a["new"], **c,
                     prev_device_ms=a["prev_dev"], ab_device_ms=a["new_dev"],
                     ab_scope=f"in-call A/B, {label}, CUDA events around "
                              f"{AB_REPS} launches, previous/new/new/"
@@ -2335,7 +2547,7 @@ def ab_phase(card, profile_steps):
                          ("viscsurf", ("viscsurf_s32",)),
                          ("paccel", ("paccel_s32",))):
         out[kind + "_sub"] = extra("fast_worm", groups, kind, True)
-    return dict(kernels={}, launches={}, extra=out)
+    return dict(kernels={"chunk_boxes": box_entry}, launches={}, extra=out)
 
 
 # ---------------------------------------------------------------------------

@@ -27,11 +27,13 @@ period.
 A capture that fails raises, with the failing op's traceback chained;
 nothing falls back to the eager loop.
 
-Launch counts: ``pair_kernels.LAUNCHES`` and ``pack.LAUNCHES`` count the
-wrappers' Python calls, and a replay makes none. The warm-up and the
-capture are set-up: the counts they add are taken back, and the capture's
-are added again at every replay, so each call counts one period's launches
-as the eager loop does.
+Launch counts: ``pair_kernels.LAUNCHES`` (and ``BOX_LAUNCHES``) and
+``pack.LAUNCHES`` count the wrappers' Python calls, and a replay makes
+none. The warm-up and the capture are set-up: the counts they add are
+taken back, and the capture's are added again at every replay, so each
+call counts one period's launches as the eager loop does. (The box cull's
+device counters, which a marked graph's kernels add to, count its warm-up
+period too.)
 
 Every capture appends its record to :data:`CAPTURES` (steps, capture plus
 instantiate seconds, pool bytes, launches a replay), which measurement
@@ -61,7 +63,7 @@ from ..ops import pair_kernels as pk
 from .state import FluidState
 
 # the launch counters a period can add to
-_COUNTERS = (pk.LAUNCHES, pack_ops.LAUNCHES)
+_COUNTERS = (pk.LAUNCHES, pk.BOX_LAUNCHES, pack_ops.LAUNCHES)
 # the fields of a state that change from period to period
 _CHANGING = ("pos", "vel", "muscle_activation", "step")
 # one record a capture: r_steps, capture_s (capture plus instantiate

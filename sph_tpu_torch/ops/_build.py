@@ -7,8 +7,9 @@ with ctypes. The library is cached under ``sph_tpu_torch/_build/`` keyed by
 a hash of every source and the flags, so a changed source rebuilds; the
 compiler's report (``-Xptxas -v``: registers, spills, shared memory of each
 kernel) is kept beside it. The ring driver's configuration
-(``pair_kernels.RING``) is compiled in as ``-DSPH_<KIND>_<FIELD>`` defines,
-so the hash covers it too. Nothing is built at import time.
+(``pair_kernels.RING``, and the box cull's ``CHUNK``) is compiled in as
+``-DSPH_<KIND>_<FIELD>`` (and ``-DSPH_RING_CHUNK``) defines, so the hash
+covers it too. Nothing is built at import time.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-from .pair_kernels import RING
+from .pair_kernels import CHUNK, RING
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SRCS = (CSRC / "pair_pass.cu", CSRC / "pack.cu")
@@ -30,14 +31,16 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 RING_DEFINES = [f"-DSPH_{kind.upper()}_{field.upper()}={int(value)}"
                 for kind, ring in RING.items()
                 for field, value in dataclasses.asdict(ring).items()]
+RING_DEFINES.append(f"-DSPH_RING_CHUNK={CHUNK}")
 FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
          *RING_DEFINES]
 # the pair-pass entry points (the spring pass's list kernel has its own)
 KINDS = ("density", "rho_star", "viscsurf", "paccel", "boundary", "membrane")
-# the first designs of the redesigned kernels, for chip_smoke.py's
-# comparison only
+# the first designs of the redesigned kernels and the ring kernels without
+# their box cull, for chip_smoke.py's comparisons only
 PREV = ("density_prev", "rho_star_prev", "paccel_prev", "viscsurf_prev",
         "spring_prev", "boundary_prev", "membrane_prev")
+NOCULL = tuple(k + "_nocull" for k in KINDS)
 
 _lib = None
 
@@ -110,10 +113,13 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(so))
         p, i64, i32, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_float)
-        for kind in KINDS + PREV:
+        pair_args = [p, i64, p, i64, p, p, p, p, p, p, i32, p, i32, i32,
+                     i32, f, f, f, f, i32, p]
+        for kind in KINDS + PREV + NOCULL:
             fn = getattr(lib, "sph_pair_" + kind)
-            fn.argtypes = [p, i64, p, i64, p, p, p, p, p, p, i32, p, i32,
-                           i32, i32, f, f, f, f, i32, p]
+            # the ring kinds' own entry points: the box cull's boxes, cull
+            # reach and counters besides
+            fn.argtypes = pair_args + ([p, f, p] if kind in KINDS else [])
             fn.restype = i32
         lib.sph_pair_spring.argtypes = [p, i64, p, i64, p, p, p, p, i32, f,
                                         f, f, f, i32, p]

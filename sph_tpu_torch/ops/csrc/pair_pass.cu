@@ -16,12 +16,15 @@
 // the same sums and are what the kernels are checked against.
 //
 // Two drivers and a list kernel. pair_ring<P, R, TPR, STAGES, ROWS_CTA,
-// Exit, Gated> runs Density, RhoStar, ViscSurf, PAccel, Boundary and
-// Membrane; spring_list runs Spring. pair_pass<P, Gated>, the first design,
-// runs no pass of the engines: it keeps the first designs of the seven
-// redesigned kernels for chip_smoke.py's comparison (the
-// sph_pair_<kind>_prev entry points). The functors below are shared by the
-// drivers.
+// Exit, Gated, CHUNK> runs Density, RhoStar, ViscSurf, PAccel,
+// Boundary and Membrane, each launch after its box kernel
+// pair_ring_boxes<CHUNK> (the box cull's column boxes, see below; the same
+// entry point launches both); spring_list runs Spring. pair_pass<P,
+// Gated>, the first design, runs no pass of the engines: it keeps the
+// first designs of the seven redesigned kernels for chip_smoke.py's
+// comparison (the sph_pair_<kind>_prev entry points), as the
+// sph_pair_<kind>_nocull entry points keep pair_ring without the box cull
+// (CHUNK 0). The functors below are shared by the drivers.
 //
 // pair_pass: one CTA per own block, one thread per own row (blockDim =
 // block).
@@ -133,8 +136,9 @@
 // block. The ring reads 3 float4 for 4 columns shared by R = 2 rows (3/8
 // LDS a pair), overlaps the tile copies with the sums and takes 128 rows a
 // CTA, TPR 2 (its matrix, PERF.md; the dam-break's 3,592 blocks fill the
-// card, TPR 4 won only on the fast worm's 912). Gated, a thread's two rows
-// share one subgroup (CONSEC in pair_ring).
+// card, TPR 4 won only on the fast worm's 912). Under the box cull R = 1
+// won (16 rows a warp: a tighter box than 32), 0.40 ms a launch on the
+// dam-break against 0.85 unculled (PERF.md).
 // Each row meets its tiles in table order and each thread its columns in
 // ascending order, adding the functor's f32 expressions as written. With
 // TPR 1 a row's sums are bitwise those of pair_pass; with TPR > 1 they
@@ -144,9 +148,14 @@
 // (PERF.md): R 1-2, TPR 4 and 64 rows a CTA won on the worm's launches, R 4
 // spilled and lost (ViscSurf, Boundary and Membrane: their own matrices,
 // PERF.md; TPR 2 won for the three, and 128 rows a CTA for Membrane;
-// Density: R 2, TPR 2, 128 rows a CTA on the dam-break). The
-// shipped values are owned by ops/pair_kernels.py (RING) and reach this
-// file as -DSPH_<KIND>_<FIELD> defines from ops/_build.py.
+// Density: R 2, TPR 2, 128 rows a CTA on the dam-break). With the box cull
+// the matrix was timed again with TPR fixed (CHUNK 16, 32, 64; R, STAGES
+// and ROWS_CTA each moved): 16-column chunks won for every kind (RhoStar:
+// 32 a tie), so CHUNK is one constant; Density took R 1, and STAGES 3-4
+// and other ROWS_CTA moved nothing beyond the noise or spilled (PERF.md).
+// The shipped values are owned by ops/pair_kernels.py (RING, CHUNK) and
+// reach this file as -DSPH_<KIND>_<FIELD> and -DSPH_RING_CHUNK defines
+// from ops/_build.py.
 //
 // The subgroup gate (Gated = true; Density, ViscSurf, PAccel). A block's
 // window is the union of its rows' reach: a 256-row block spans several
@@ -165,6 +174,51 @@
 // barriers. A skipped term is an exact zero at sort time (the windows are
 // the maskless windows of the group), and the tiles and columns keep their
 // order, so a row's sum is the ungated one.
+//
+// The box cull (CHUNK > 0 in pair_ring). What it bounds: the candidate
+// set. A block's tiles hold whole pencils of three z-bands, so a row meets
+// every column of up to ~12 pencils and ~98 % of the pairs a pass
+// evaluates lie beyond h (1.2 % within h on the dam-break, 1.8 % on the
+// worm's moving rows): the FP32 pipe that bounds the passes spends its
+// issue slots on exact zeros. Columns are sorted by (pencil, y) and so are
+// a warp's rows, so an aligned run of CHUNK columns and a warp's run of
+// rows are compact boxes in space. pair_ring_boxes (launched by
+// launch_ring just before the ring kernel, on the slab it is given, into
+// the caller's buffer; named for the driver it serves, so profiles count
+// it with the pair kernels) writes each aligned CHUNK-column run's box,
+// min and max of the three position rows the distance test reads (rows
+// kRow0 .. kRow0 + 2), from exactly the f32 values the ring stages; pad
+// columns at `far` only widen a box. pair_ring reduces its warp's live
+// rows to one box at start (shuffles); per tile, lane c loads chunk c's
+// box, computes the squared gap g2 between the two boxes and the warp
+// ballots the chunks with g2 < cull; the j loop then runs over the kept
+// chunks only. A tile wider than 32 CHUNK (ccol above 512, which no
+// engine's default makes) runs the unculled kernel instead: one lane a
+// chunk keeps the test one ballot. One test a (warp, chunk) stands for
+// 32 R / TPR x CHUNK pairs. The warp's rows are one consecutive
+// run (a thread's R rows are consecutive), so its box is tight.
+//
+// Why the sums stay bitwise. cull is the functor's cull reach: an f32 r2
+// at or above which the kernel's every term of the pair is an exact zero,
+// raised by a margin (ops/pair_kernels.py PairPass.cull_reach): Density
+// and RhoStar h2 (q = fmaxf(h2 - r2, 0) is +0), ViscSurf, Boundary and
+// Membrane their exit's reach, each x (1 + 2^-20) rounded up; PAccel h2 x
+// (1 + 2^-18) (r = r2 rsqrtf(r2) >= h, so tt = 0 and cm < 0). The margin
+// covers the rounding between the box test and the pair: rounding is
+// monotone, so |dx| as computed is at least the gap as computed on each
+// axis; a sum of three squares, fused or not, is within (1 +- u)^3 of its
+// exact value (u = 2^-24), so the pair's r2 >= g2 (1 - 6.1 u); Density's
+// h2 - r2, however nvcc contracts it, is negative once r2 >= h2 (1 + 6 u);
+// rsqrtf's 2 ulps and r's rounding take r below sqrt(r2) by < 5 u. 16 u
+// (64 u for PAccel) holds all of them with room. A culled pair therefore
+// adds +0 to a sum that is +0 or positive (Density, RhoStar: no change)
+// or is one the exit skips anyway (the others), and the kept columns are
+// met in the same order by the same part q (CHUNK is a multiple of 4 TPR),
+// so with TPR unchanged every output is bitwise the unculled kernel's. A
+// tile whose offset is not a multiple of CHUNK, which the tables never
+// make (aln is a multiple of ALIGN = 128), is computed whole. counts, when
+// not null (the graphs the tracer replays), gets each warp's chunks tested
+// and culled, one atomic each at its end.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (no --use_fast_math: sqrtf, rsqrtf and division keep
@@ -216,7 +270,9 @@ struct Density {
   // t(f): field f of the column (see TileCol, RegCol). No exit: one
   // skipping the pair where h2 - r2 <= 0 (exact: the term is a zero) won
   // in no configuration on the card (up to 4 % slower on the dam-break),
-  // the body after the test being ~4 instructions
+  // the body after the test being ~4 instructions. Box cull reach: h2 (1
+  // + 2^-20), rounded up: at r2 >= h2 (1 + 6 u) h2 - r2 is negative
+  // however nvcc contracts it, so q = +0 and the sum is unchanged
   template <bool Exit, class T>
   __device__ void pair_at(const Own& o, const T& t, Acc& a) const {
     const float dx = o.x - t(0);
@@ -249,7 +305,8 @@ struct RhoStar {
   __device__ Own load(const float* own, long long w, long long i) const {
     return {own[i], own[w + i], own[2 * w + i]};
   }
-  // t(f): field f of the column (see TileCol, RegCol)
+  // t(f): field f of the column (see TileCol, RegCol). Box cull reach:
+  // Density's, h2 (1 + 2^-20)
   template <bool Exit, class T>
   __device__ void pair_at(const Own& o, const T& t, Acc& a) const {
     const float dx = o.x - t(0);
@@ -284,7 +341,9 @@ struct ViscSurf {
   }
   // Exit: skip the pair before its sqrtf where r2 >= reach: there
   // h - sqrtf(r2) <= 0 (sqrtf is correctly rounded, so monotone) and not
-  // r2 < h2, so both terms are exact zeros and the sums are unchanged
+  // r2 < h2, so both terms are exact zeros and the sums are unchanged.
+  // Box cull reach: reach (1 + 2^-20), rounded up: the pair's r2 as
+  // computed is then >= reach, a pair the exit skips
   template <bool Exit, class T>
   __device__ void pair_at(const Own& o, const T& t, Acc& a) const {
     const float dx = o.x - t(0);
@@ -329,7 +388,10 @@ struct PAccel {
     return {own[i], own[w + i], own[2 * w + i], own[4 * w + i]};
   }
   // Exit: skip the force body where every term is an exact zero (r >= h:
-  // tt = 0 and the close branch is off), tested on r as computed
+  // tt = 0 and the close branch is off), tested on r as computed. Box
+  // cull reach: h^2 (1 + 2^-18), rounded up: rsqrtf's 2 ulps and r's
+  // rounding take r = r2 rsqrtf(r2) below sqrt(r2) by < 5 u, which 32 u
+  // on r covers, so r >= h and the exit skips the pair
   template <bool Exit, class T>
   __device__ void pair_at(const Own& o, const T& t, Acc& a) const {
     const float dx = o.x - t(0);
@@ -380,7 +442,8 @@ struct Boundary {
   // and w = fmaxf(0, d inv_r0) isb is +0 or -0; every term it adds (w n,
   // w, w d) is then +0 or -0, and adding a zero to the accumulators (which
   // start at +0) changes none of them: the sums are bitwise those without
-  // the exit
+  // the exit. Box cull reach: reach (1 + 2^-20), rounded up (ViscSurf's
+  // argument)
   template <bool Exit, class T>
   __device__ void pair_at(const Own& o, const T& t, Acc& a) const {
     const float dx = o.x - t(0);
@@ -483,7 +546,8 @@ struct Membrane {
   }
   // beyond r0 the weight is 0 and every term of the five sums with it: the
   // pair returns at !(d > 0). Exit tests the same predicate before the
-  // sqrtf: r2 >= reach exactly where sqrtf(r2) >= r0, i.e. d <= 0
+  // sqrtf: r2 >= reach exactly where sqrtf(r2) >= r0, i.e. d <= 0. Box
+  // cull reach: reach (1 + 2^-20), rounded up (ViscSurf's argument)
   template <bool Exit, class T>
   __device__ void pair_at(const Own& o, const T& t, Acc& a) const {
     const float dx = o.x - t(0);
@@ -743,20 +807,83 @@ __device__ __forceinline__ void fetch_tile(const float* slab, long long slab_w,
 }
 
 // One column C of the four a float4 load holds (slab column col + C), for
-// each of a thread's R rows (with Each only the rows whose group takes the
-// tile).
-template <int C, bool Exit, bool Each, int R, class P>
+// each of a thread's R rows.
+template <int C, bool Exit, int R, class P>
 __device__ __forceinline__ void ring_column(const P& p,
                                             const typename P::Own* o,
                                             const float4* v,
                                             const float* slab,
                                             long long slab_w, long long col,
-                                            typename P::Acc* acc,
-                                            const bool* on) {
+                                            typename P::Acc* acc) {
   const RegCol<C> t{v, slab, slab_w, col + C};
 #pragma unroll
-  for (int k = 0; k < R; ++k)
-    if (!Each || on[k]) p.template pair_at<Exit>(o[k], t, acc[k]);
+  for (int k = 0; k < R; ++k) p.template pair_at<Exit>(o[k], t, acc[k]);
+}
+
+// The box of each aligned run of CHUNK slab columns (see the header
+// comment): boxes[2 b] = (min x, min y, min z, 0), boxes[2 b + 1] = the
+// maxima, over columns b CHUNK .. b CHUNK + CHUNK - 1 below slab_w of slab
+// rows row0 .. row0 + 2. One warp a 128 columns, a float4 a lane and
+// field (the slab is 16-byte aligned with a width that is a multiple of
+// 4), then xor shuffles over the CHUNK / 4 lanes of a chunk. Bound: bytes,
+// 12 a column read, 32 a chunk written.
+template <int CHUNK>
+__global__ void __launch_bounds__(256)
+pair_ring_boxes(const float* __restrict__ slab, long long slab_w, int row0,
+                float4* __restrict__ boxes) {
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long col = warp * 128 + 4 * lane;
+  const bool in = col < slab_w;
+  float lo[3], hi[3];
+#pragma unroll
+  for (int f = 0; f < 3; ++f) {
+    lo[f] = __int_as_float(0x7f800000);   // +inf: an empty box
+    hi[f] = -lo[f];
+    if (in) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          slab + (long long)(row0 + f) * slab_w + col);
+      lo[f] = fminf(fminf(v.x, v.y), fminf(v.z, v.w));
+      hi[f] = fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
+    }
+  }
+#pragma unroll
+  for (int m = 1; m < CHUNK / 4; m <<= 1) {
+#pragma unroll
+    for (int f = 0; f < 3; ++f) {
+      lo[f] = fminf(lo[f], __shfl_xor_sync(0xffffffffu, lo[f], m));
+      hi[f] = fmaxf(hi[f], __shfl_xor_sync(0xffffffffu, hi[f], m));
+    }
+  }
+  if (in && lane % (CHUNK / 4) == 0) {
+    const long long c = col / CHUNK;
+    boxes[2 * c] = make_float4(lo[0], lo[1], lo[2], 0.0f);
+    boxes[2 * c + 1] = make_float4(hi[0], hi[1], hi[2], 0.0f);
+  }
+}
+
+// The box cull's test of the n_ch (<= 32) chunks of the tile at column
+// off (a warp's call; see the header comment): lane c loads chunk
+// c's box and keeps the chunk where its squared gap to the warp's row box
+// (rlo, rhi) lies under cull, or where the tile does not start on a
+// multiple of CHUNK; the warp's ballot of the kept chunks.
+template <int CHUNK>
+__device__ __forceinline__ unsigned cull_ballot(
+    const float4* __restrict__ boxes, long long off, int n_ch, float3 rlo,
+    float3 rhi, float cull) {
+  const int c = (int)(threadIdx.x & 31);
+  bool kept = c < n_ch;
+  if (kept && off % CHUNK == 0) {
+    const long long bi = off / CHUNK + c;
+    const float4 lo = __ldg(boxes + 2 * bi);
+    const float4 hi = __ldg(boxes + 2 * bi + 1);
+    const float gx = fmaxf(fmaxf(lo.x - rhi.x, rlo.x - hi.x), 0.0f);
+    const float gy = fmaxf(fmaxf(lo.y - rhi.y, rlo.y - hi.y), 0.0f);
+    const float gz = fmaxf(fmaxf(lo.z - rhi.z, rlo.z - hi.z), 0.0f);
+    kept = !(gx * gx + gy * gy + gz * gz >= cull);
+  }
+  return __ballot_sync(0xffffffffu, kept);
 }
 
 // R: own rows a thread; TPR: threads a row (part q of a row's TPR threads
@@ -764,29 +891,32 @@ __device__ __forceinline__ void ring_column(const P& p,
 // the end in a fixed order); STAGES: tiles in the ring; ROWS_CTA: the
 // consecutive rows of one own block a CTA takes (block / ROWS_CTA CTAs a
 // block, ROWS_CTA / R * TPR threads); Exit: the functor's early exit;
-// Gated: the subgroup gate. The threads u * TPR .. u * TPR + TPR - 1 share
-// rows u, u + SPAN, ... (SPAN = ROWS_CTA / R), so each warp covers 32 / TPR
-// consecutive rows; in the gated form with R > 1 (CONSEC) rows u R ..
-// u R + R - 1 instead, so a thread's rows lie in one subgroup (R must
-// divide sub): the thread keeps one set of windows and computes a tile for
-// all its rows or for none, with no test a row and column (with rows u
-// and u + SPAN, which sit in different subgroups, a thread would stream
-// every tile that either group takes and test each row at every column:
-// ~1.4x the time on the fast worm at sub 32), and a warp's
-// 32 R / TPR rows lie in one subgroup where that many divide sub. A row's
-// sum does not depend on which thread holds it; a row that is not live
-// computes a sum that is thrown away.
+// Gated: the subgroup gate; CHUNK: the box cull's columns a chunk (0: no
+// cull, the unculled form).
+// Threads u * TPR .. u * TPR + TPR - 1 share rows u R .. u R + R - 1, so
+// each warp covers one run of 32 R / TPR consecutive rows: the box cull's
+// row box (a warp's box over two runs would be loose), and in the gated
+// form a thread's rows lie in one subgroup (R must divide sub): the thread
+// keeps one set of windows and computes a tile for all its rows or for
+// none, with no test a row and column (with rows u and u + ROWS_CTA / R,
+// which sit in different subgroups, a thread would stream every tile that
+// either group takes and test each row at every column: ~1.4x the time on
+// the fast worm at sub 32), and a warp's rows lie in one subgroup where
+// that many divide sub. A row's sum does not depend on which thread holds
+// it; a row that is not live computes a sum that is thrown away.
 template <class P, int R, int TPR, int STAGES, int ROWS_CTA, bool Exit,
-          bool Gated>
+          bool Gated, int CHUNK>
 __global__ void __launch_bounds__(ROWS_CTA / R * TPR)
 pair_ring(P p, const float* __restrict__ own, long long own_w,
           const float* __restrict__ slab, long long slab_w,
           const int* __restrict__ aln, const int* __restrict__ s0,
           const int* __restrict__ cnt, const int* __restrict__ ob,
           const int* __restrict__ glo, const int* __restrict__ ghi, int sub,
-          float* __restrict__ out, long long n_pad, int block, int ccol) {
+          float* __restrict__ out, long long n_pad, int block, int ccol,
+          const float4* __restrict__ boxes, float cull,
+          unsigned long long* __restrict__ counts) {
   constexpr int NF = P::kRows, ROW0 = P::kRow0;
-  constexpr int SPAN = ROWS_CTA / R;
+  constexpr unsigned FULL = 0xffffffffu;
   // [STAGES][NF][ccol]: slab rows ROW0 .. ROW0 + NF - 1 of a tile
   extern __shared__ __align__(16) float ring[];
   __shared__ __align__(8) unsigned long long full[STAGES];
@@ -795,33 +925,55 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
   const int r_first = (blockIdx.x - b * splits) * ROWS_CTA;
   const int u = threadIdx.x / TPR;
   const int part = threadIdx.x - u * TPR;
-  // a thread's rows: consecutive (u R + k) in the gated form with R > 1,
-  // else u + k SPAN (the expressions below spell out both); EACH: the gate
-  // is tested for each row; NW: the window sets a thread keeps
-  constexpr bool CONSEC = Gated && R > 1;
-  constexpr bool EACH = Gated && !CONSEC;
-  constexpr int NW = EACH ? R : 1;
+  // the thread's first row in its block
+  const int r0 = r_first + u * R;
 
   typename P::Own o[R];
   typename P::Acc acc[R];
   bool live[R];
-  int wlo[NW][3], whi[NW][3];
+  bool any_live = false;
 #pragma unroll
   for (int k = 0; k < R; ++k) {
-    const long long i = CONSEC ? (long long)b * block + r_first + u * R + k
-                               : (long long)b * block + r_first + k * SPAN + u;
-    const long long row = (long long)ob[0] + i;
+    const long long row = (long long)ob[0] + (long long)b * block + r0 + k;
     live[k] = row >= 0 && row < own_w;
+    any_live = any_live || live[k];
     o[k] = p.load(own, own_w, live[k] ? row : 0);
     acc[k] = typename P::Acc{};
-    if (Gated && k < NW) {
-      const int ng = block / sub;
-      const int g = (CONSEC ? r_first + u * R + k
-                            : r_first + k * SPAN + u) / sub;
-      for (int d = 0; d < 3; ++d) {
-        wlo[k][d] = glo[(3 * b + d) * ng + g];
-        whi[k][d] = ghi[(3 * b + d) * ng + g];
+  }
+  // the gate: the windows of the thread's subgroup
+  int wlo[3], whi[3];
+  if (Gated) {
+    const int ng = block / sub;
+    for (int d = 0; d < 3; ++d) {
+      wlo[d] = glo[(3 * b + d) * ng + r0 / sub];
+      whi[d] = ghi[(3 * b + d) * ng + r0 / sub];
+    }
+  }
+  // the box cull: the warp's live rows' box (an empty box, +inf to -inf,
+  // where none is live: every chunk is culled, the sums are thrown away)
+  float3 rlo, rhi;
+  unsigned long long n_tested = 0, n_culled = 0;
+  if constexpr (CHUNK > 0) {
+    const float inf = __int_as_float(0x7f800000);
+    rlo = make_float3(inf, inf, inf);
+    rhi = make_float3(-inf, -inf, -inf);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      if (live[k]) {
+        rlo = make_float3(fminf(rlo.x, o[k].x), fminf(rlo.y, o[k].y),
+                          fminf(rlo.z, o[k].z));
+        rhi = make_float3(fmaxf(rhi.x, o[k].x), fmaxf(rhi.y, o[k].y),
+                          fmaxf(rhi.z, o[k].z));
       }
+    }
+#pragma unroll
+    for (int m = 16; m >= 1; m >>= 1) {
+      rlo.x = fminf(rlo.x, __shfl_xor_sync(FULL, rlo.x, m));
+      rlo.y = fminf(rlo.y, __shfl_xor_sync(FULL, rlo.y, m));
+      rlo.z = fminf(rlo.z, __shfl_xor_sync(FULL, rlo.z, m));
+      rhi.x = fmaxf(rhi.x, __shfl_xor_sync(FULL, rhi.x, m));
+      rhi.y = fmaxf(rhi.y, __shfl_xor_sync(FULL, rhi.y, m));
+      rhi.z = fmaxf(rhi.z, __shfl_xor_sync(FULL, rhi.z, m));
     }
   }
 
@@ -845,34 +997,60 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
     long long off;
     int ncol;
     tile_at(aln, s0, b, s1, s2, s, ccol, slab_w, off, ncol);
-    bool on[R];
     bool any = !Gated;
     if (Gated) {
       const long long end = off + ccol;
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const int w = CONSEC ? 0 : k;
-        on[k] = live[k] && ((whi[w][0] > off && wlo[w][0] < end) ||
-                            (whi[w][1] > off && wlo[w][1] < end) ||
-                            (whi[w][2] > off && wlo[w][2] < end));
-        any = any || on[k];
+      any = any_live && ((whi[0] > off && wlo[0] < end) ||
+                         (whi[1] > off && wlo[1] < end) ||
+                         (whi[2] > off && wlo[2] < end));
+    }
+    // the box cull: lane c tests chunk c of the tile (columns c CHUNK ..
+    // c CHUNK + CHUNK - 1, at most 32 chunks a tile: launch_ring sends a
+    // wider tile to the unculled kernel); keep: the warp's ballot of the
+    // chunks whose box comes within cull of the warp's
+    unsigned keep = 0;
+    if constexpr (CHUNK > 0) {
+      if (!Gated || __any_sync(FULL, any)) {
+        const int n_ch = (ncol + CHUNK - 1) / CHUNK;
+        keep = cull_ballot<CHUNK>(boxes, off, n_ch, rlo, rhi, cull);
+        if (counts) {
+          const unsigned valid = n_ch >= 32 ? FULL : (1u << n_ch) - 1u;
+          n_tested += __popc(valid);
+          n_culled += __popc(valid & ~keep);
+        }
       }
     }
     const int st = s % STAGES;
     mbar_wait(bar0 + 8u * st, (unsigned)(s / STAGES) & 1u);
     if (any) {
       const float* t = ring + st * NF * ccol;
-#pragma unroll 2
-      for (int j = 4 * part; j < ncol; j += 4 * TPR) {
+      // columns j .. j + 3 of the tile, each field read as one float4
+      auto columns4 = [&](int j) {
         float4 v[NF];
 #pragma unroll
         for (int f = 0; f < NF; ++f)
           v[f] = *reinterpret_cast<const float4*>(t + f * ccol + j);
         const long long col = off + j;
-        ring_column<0, Exit, EACH, R>(p, o, v, slab, slab_w, col, acc, on);
-        ring_column<1, Exit, EACH, R>(p, o, v, slab, slab_w, col, acc, on);
-        ring_column<2, Exit, EACH, R>(p, o, v, slab, slab_w, col, acc, on);
-        ring_column<3, Exit, EACH, R>(p, o, v, slab, slab_w, col, acc, on);
+        ring_column<0, Exit, R>(p, o, v, slab, slab_w, col, acc);
+        ring_column<1, Exit, R>(p, o, v, slab, slab_w, col, acc);
+        ring_column<2, Exit, R>(p, o, v, slab, slab_w, col, acc);
+        ring_column<3, Exit, R>(p, o, v, slab, slab_w, col, acc);
+      };
+      if constexpr (CHUNK > 0) {
+        // the kept chunks in ascending order; within one, part q's 4-column
+        // groups are those it takes in the whole tile (CHUNK is a multiple
+        // of 4 TPR)
+        for (unsigned m = keep; m; m &= m - 1) {
+          const int j0 = (__ffs(m) - 1) * CHUNK;
+#pragma unroll
+          for (int q = 0; q < CHUNK / (4 * TPR); ++q) {
+            const int j = j0 + 4 * (part + q * TPR);
+            if (j < ncol) columns4(j);
+          }
+        }
+      } else {
+#pragma unroll 2
+        for (int j = 4 * part; j < ncol; j += 4 * TPR) columns4(j);
       }
     }
     if (s + STAGES < n_s) {
@@ -882,6 +1060,12 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
         fetch_tile<NF, ROW0, STAGES>(slab, slab_w, aln, s0, b, s1, s2,
                                      s + STAGES, ccol, ring0, bar0);
       }
+    }
+  }
+  if constexpr (CHUNK > 0) {
+    if (counts && (threadIdx.x & 31) == 0) {
+      atomicAdd(counts, n_tested);
+      atomicAdd(counts + 1, n_culled);
     }
   }
 
@@ -894,29 +1078,34 @@ pair_ring(P p, const float* __restrict__ own, long long own_w,
       for (int m = 1; m < TPR; m <<= 1)
 #pragma unroll
         for (int e = 0; e < (int)(sizeof(acc[k]) / sizeof(float)); ++e)
-          a[e] += __shfl_xor_sync(0xffffffffu, a[e], m);
+          a[e] += __shfl_xor_sync(FULL, a[e], m);
     }
     if (part == 0) {
       if (!live[k]) acc[k] = typename P::Acc{};
-      p.store(out, n_pad,
-              CONSEC ? (long long)b * block + r_first + u * R + k
-                     : (long long)b * block + r_first + k * SPAN + u,
-              acc[k]);
+      p.store(out, n_pad, (long long)b * block + r0 + k, acc[k]);
     }
   }
 }
 
+// With CHUNK > 0 and ccol <= 32 CHUNK, first the box kernel on the slab's
+// rows kRow0 .. kRow0 + 2 into boxes (ceil(slab_w / CHUNK) boxes of 8
+// floats), then the ring kernel, both on `stream`.
 template <int R, int TPR, int STAGES, int ROWS_CTA, bool Exit, bool Gated,
-          class P>
+          int CHUNK, class P>
 int launch_ring(const P& p, const float* own, long long own_w,
                 const float* slab, long long slab_w, const int* aln,
                 const int* s0, const int* cnt, const int* ob, const int* glo,
                 const int* ghi, int sub, float* out, int n_blocks, int block,
-                int ccol, void* stream) {
+                int ccol, void* stream, float* boxes = nullptr,
+                float cull = 0.0f, unsigned long long* counts = nullptr) {
   constexpr int nthr = ROWS_CTA / R * TPR;
   static_assert(TPR == 1 || TPR == 2 || TPR == 4, "threads a row: 1, 2, 4");
   static_assert(STAGES >= 1 && ROWS_CTA % R == 0 && nthr % 32 == 0 &&
                     nthr <= 512, "ring configuration");
+  static_assert(CHUNK == 0 || (128 % CHUNK == 0 && CHUNK % (4 * TPR) == 0 &&
+                               CHUNK >= 4),
+                "a chunk divides ALIGN = 128 and holds whole rounds of a "
+                "row's parts");
   if (n_blocks <= 0) return (int)cudaGetLastError();
   if (Gated && (sub <= 0 || block % sub != 0 || sub % R != 0 || !glo ||
                 !ghi))
@@ -926,27 +1115,44 @@ int launch_ring(const P& p, const float* own, long long own_w,
   if (ccol % 4 != 0 || slab_w % 4 != 0 ||
       reinterpret_cast<unsigned long long>(slab) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
+  if constexpr (CHUNK > 0) {
+    // a lane tests a chunk: a tile wider than 32 chunks takes the unculled
+    // kernel, whose sums are the same
+    if (ccol > 32 * CHUNK)
+      return launch_ring<R, TPR, STAGES, ROWS_CTA, Exit, Gated, 0>(
+          p, own, own_w, slab, slab_w, aln, s0, cnt, ob, glo, ghi, sub, out,
+          n_blocks, block, ccol, stream);
+    if (!boxes) return (int)cudaErrorInvalidValue;
+    if (slab_w > 0) {
+      const long long threads = (slab_w + 127) / 128 * 32;
+      pair_ring_boxes<CHUNK><<<(unsigned)((threads + 255) / 256), 256, 0,
+                               (cudaStream_t)stream>>>(
+          slab, slab_w, P::kRow0, reinterpret_cast<float4*>(boxes));
+    }
+  }
   const size_t smem = sizeof(float) * P::kRows * (size_t)ccol * STAGES;
+  auto* kernel = pair_ring<P, R, TPR, STAGES, ROWS_CTA, Exit, Gated, CHUNK>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        pair_ring<P, R, TPR, STAGES, ROWS_CTA, Exit, Gated>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int grid = n_blocks * (block / ROWS_CTA);
-  pair_ring<P, R, TPR, STAGES, ROWS_CTA, Exit, Gated>
-      <<<grid, nthr, smem, (cudaStream_t)stream>>>(
-          p, own, own_w, slab, slab_w, aln, s0, cnt, ob, glo, ghi, sub, out,
-          (long long)n_blocks * block, block, ccol);
+  kernel<<<grid, nthr, smem, (cudaStream_t)stream>>>(
+      p, own, own_w, slab, slab_w, aln, s0, cnt, ob, glo, ghi, sub, out,
+      (long long)n_blocks * block, block, ccol,
+      reinterpret_cast<const float4*>(boxes), cull, counts);
   return (int)cudaGetLastError();
 }
 
 // The shipped configuration of a ring kind, from ops/pair_kernels.py RING
 // (the -DSPH_<KIND>_<FIELD> defines of ops/_build.py): R, TPR, STAGES,
-// ROWS_CTA, Exit.
+// ROWS_CTA, Exit; and the box cull's CHUNK, one for every kind
+// (pair_kernels.CHUNK, -DSPH_RING_CHUNK).
 #if !defined(SPH_DENSITY_ROWS) || !defined(SPH_RHO_STAR_ROWS) ||      \
     !defined(SPH_VISCSURF_ROWS) || !defined(SPH_PACCEL_ROWS) ||         \
-    !defined(SPH_BOUNDARY_ROWS) || !defined(SPH_MEMBRANE_ROWS)
+    !defined(SPH_BOUNDARY_ROWS) || !defined(SPH_MEMBRANE_ROWS) ||       \
+    !defined(SPH_RING_CHUNK)
 #error "build with the ring defines of sph_tpu_torch/ops/_build.py"
 #endif
 #define SPH_RING(K)                                                          \
@@ -966,34 +1172,77 @@ int launch_ring(const P& p, const float* own, long long own_w,
 #define SPH_PAIR_FWD                                                        \
   own, own_w, slab, slab_w, aln, s0, cnt, ob, glo, ghi, sub, out,          \
       n_blocks, block, ccol, stream
+// the ring kinds' entry points also take the box cull's inputs: a buffer
+// of ceil(slab_w / CHUNK) boxes of 8 floats that the box kernel fills
+// before the ring kernel reads it (the caller's: ops/pair_kernels.py keeps
+// one a device), the kind's cull reach and the counters (null: none)
+#define SPH_RING_ARGS                                                       \
+  SPH_PAIR_ARGS, float *boxes, float cull, unsigned long long *counts
+#define SPH_RING_FWD SPH_PAIR_FWD, boxes, cull, counts
 #define SPH_UNGATED(P) \
   (sub != 0 ? (int)cudaErrorInvalidValue : launch<false>(P, SPH_PAIR_FWD))
 #define SPH_GATED(P) \
   (sub != 0 ? launch<true>(P, SPH_PAIR_FWD) : launch<false>(P, SPH_PAIR_FWD))
+// the shipped ring kernel of kind K after its box kernel (gated where
+// sub != 0 and G), and its unculled form (CHUNK 0, no box kernel)
+#define SPH_RING_CALL(K, G, C, P, ...)                                      \
+  (sub != 0 ? (G ? launch_ring<SPH_RING(K), G, C>(P, __VA_ARGS__)          \
+                 : (int)cudaErrorInvalidValue)                              \
+            : launch_ring<SPH_RING(K), false, C>(P, __VA_ARGS__))
+#define SPH_CULL_CALL(K, G, P) \
+  SPH_RING_CALL(K, G, SPH_RING_CHUNK, P, SPH_RING_FWD)
+#define SPH_NOCULL_CALL(K, G, P) SPH_RING_CALL(K, G, 0, P, SPH_PAIR_FWD)
 
 extern "C" {
 
-int sph_pair_density(SPH_PAIR_ARGS) {
-  const Density p{c0, c1, c2, c3};
-  return sub != 0 ? launch_ring<SPH_RING(DENSITY), true>(p, SPH_PAIR_FWD)
-                  : launch_ring<SPH_RING(DENSITY), false>(p, SPH_PAIR_FWD);
+int sph_pair_density(SPH_RING_ARGS) {
+  return SPH_CULL_CALL(DENSITY, true, (Density{c0, c1, c2, c3}));
 }
 
-int sph_pair_rho_star(SPH_PAIR_ARGS) {
-  if (sub != 0) return (int)cudaErrorInvalidValue;
-  return launch_ring<SPH_RING(RHO_STAR), false>(RhoStar{c0}, SPH_PAIR_FWD);
+int sph_pair_rho_star(SPH_RING_ARGS) {
+  return SPH_CULL_CALL(RHO_STAR, false, RhoStar{c0});
 }
 
-int sph_pair_viscsurf(SPH_PAIR_ARGS) {
-  const ViscSurf p{c0, c1, c2, c3};
-  return sub != 0 ? launch_ring<SPH_RING(VISCSURF), true>(p, SPH_PAIR_FWD)
-                  : launch_ring<SPH_RING(VISCSURF), false>(p, SPH_PAIR_FWD);
+int sph_pair_viscsurf(SPH_RING_ARGS) {
+  return SPH_CULL_CALL(VISCSURF, true, (ViscSurf{c0, c1, c2, c3}));
 }
 
-int sph_pair_paccel(SPH_PAIR_ARGS) {
-  const PAccel p{c0, c1, c2, c3};
-  return sub != 0 ? launch_ring<SPH_RING(PACCEL), true>(p, SPH_PAIR_FWD)
-                  : launch_ring<SPH_RING(PACCEL), false>(p, SPH_PAIR_FWD);
+int sph_pair_paccel(SPH_RING_ARGS) {
+  return SPH_CULL_CALL(PACCEL, true, (PAccel{c0, c1, c2, c3}));
+}
+
+int sph_pair_boundary(SPH_RING_ARGS) {
+  return SPH_CULL_CALL(BOUNDARY, false, (Boundary{c0, c1, c2}));
+}
+
+int sph_pair_membrane(SPH_RING_ARGS) {
+  return SPH_CULL_CALL(MEMBRANE, false, (Membrane{c0, c1}));
+}
+
+// the ring kernels without the box cull, kept for chip_smoke.py's bitwise
+// comparison; no wrapper or engine calls these.
+int sph_pair_density_nocull(SPH_PAIR_ARGS) {
+  return SPH_NOCULL_CALL(DENSITY, true, (Density{c0, c1, c2, c3}));
+}
+
+int sph_pair_rho_star_nocull(SPH_PAIR_ARGS) {
+  return SPH_NOCULL_CALL(RHO_STAR, false, RhoStar{c0});
+}
+
+int sph_pair_viscsurf_nocull(SPH_PAIR_ARGS) {
+  return SPH_NOCULL_CALL(VISCSURF, true, (ViscSurf{c0, c1, c2, c3}));
+}
+
+int sph_pair_paccel_nocull(SPH_PAIR_ARGS) {
+  return SPH_NOCULL_CALL(PACCEL, true, (PAccel{c0, c1, c2, c3}));
+}
+
+int sph_pair_boundary_nocull(SPH_PAIR_ARGS) {
+  return SPH_NOCULL_CALL(BOUNDARY, false, (Boundary{c0, c1, c2}));
+}
+
+int sph_pair_membrane_nocull(SPH_PAIR_ARGS) {
+  return SPH_NOCULL_CALL(MEMBRANE, false, (Membrane{c0, c1}));
 }
 
 // pair_pass for the kinds the ring driver and the spring list took over,
@@ -1027,12 +1276,6 @@ int sph_pair_membrane_prev(SPH_PAIR_ARGS) {
   return SPH_UNGATED((Membrane{c0, c1}));
 }
 
-int sph_pair_boundary(SPH_PAIR_ARGS) {
-  if (sub != 0) return (int)cudaErrorInvalidValue;
-  return launch_ring<SPH_RING(BOUNDARY), false>(Boundary{c0, c1, c2},
-                                                 SPH_PAIR_FWD);
-}
-
 // the spring pass on its list (ops/pair_kernels.py spring_list): row_ptr
 // [n_pad + 1], ent [n_slots * slab_w]
 int sph_pair_spring(const float* own, long long own_w, const float* slab,
@@ -1046,12 +1289,6 @@ int sph_pair_spring(const float* own, long long own_w, const float* slab,
       Spring{c0, c1, c2, c3, n_slots}, own, own_w, slab, slab_w, row_ptr,
       ent, ob, out, n_pad);
   return (int)cudaGetLastError();
-}
-
-int sph_pair_membrane(SPH_PAIR_ARGS) {
-  if (sub != 0) return (int)cudaErrorInvalidValue;
-  return launch_ring<SPH_RING(MEMBRANE), false>(Membrane{c0, c1},
-                                                 SPH_PAIR_FWD);
 }
 
 const char* sph_cuda_error_string(int err) {

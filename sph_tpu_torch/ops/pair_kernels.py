@@ -55,6 +55,18 @@ kernels skip a pair's body where every term is an exact zero
 (``Ring.exit``); the thresholds are the passes' last constants
 (``sqrt_reach``).
 
+The ring kinds cull by boxes (``CHUNK``): each launch first writes the
+box of every aligned run of ``CHUNK`` slab columns into a buffer kept a
+device (the kernel ``pair_ring_boxes``, launched by the kind's own entry
+point, counted in ``BOX_LAUNCHES``; ``chunk_boxes`` is its plain
+version), and the ring kernel skips the columns of a chunk whose box
+lies ``cull_reach`` or more from the box of a warp's rows
+(``PairPass.cull_reach``: past it every term is an exact zero). The sums
+are bitwise those without the cull; ``cull_chunks`` is the plain model of
+what it skips. Launches made while the tracer is on (the graphs a traced
+call replays) also count each kind's chunks tested and culled on the
+device (``cull_counters``).
+
 The spring pass runs on a list, not on tiles: ``spring_list`` (once per
 resort period) turns the tile tables and the partner ids of the spring
 slab into a CSR over the own rows of the (column, slot) entries that the
@@ -141,20 +153,30 @@ class Ring:
     kernel (``_build.FLAGS`` passes each field as ``-DSPH_<KIND>_<FIELD>``).
     Chosen by timing a matrix of them on the card (PERF.md)."""
 
-    rows: int          # own rows a thread (R)
+    rows: int          # own rows a thread (R), consecutive
     tpr: int           # threads a row; their partial sums add in fixed order
     stages: int        # tiles in the shared-memory ring
     rows_cta: int      # rows of an own block a CTA takes
     exit: bool = False  # the kind's exact early exit
 
+    @property
+    def warp_rows(self) -> int:
+        """Own rows a warp holds, one consecutive run: the box cull's row
+        box."""
+        return 32 * self.rows // self.tpr
+
 
 # kinds on the ring driver -> their configuration
-RING = {"density": Ring(rows=2, tpr=2, stages=2, rows_cta=128),
+RING = {"density": Ring(rows=1, tpr=2, stages=2, rows_cta=128),
         "rho_star": Ring(rows=2, tpr=4, stages=2, rows_cta=64),
         "viscsurf": Ring(rows=1, tpr=2, stages=2, rows_cta=64, exit=True),
         "paccel": Ring(rows=1, tpr=4, stages=2, rows_cta=64, exit=True),
         "boundary": Ring(rows=1, tpr=2, stages=2, rows_cta=64, exit=True),
         "membrane": Ring(rows=1, tpr=2, stages=2, rows_cta=128, exit=True)}
+# the box cull's columns a chunk, for every ring kind (``_build.FLAGS``
+# passes it as -DSPH_RING_CHUNK): divides ALIGN (the tiles' offsets are its
+# multiples) and is a multiple of 4 tpr (a row's parts keep their columns)
+CHUNK = 16
 
 # kind -> the first slab row the ring stages, where it is not row 0: the
 # membrane kernel stages x(t+1), what its distance test reads for every pair
@@ -162,8 +184,26 @@ _RING_ROW0 = {"membrane": PMM_XN}
 
 
 # Kernel launches per kind, gated launches as kind + "_sub" (plain ints,
-# reset by callers that count a run).
+# reset by callers that count a run); the box cull's box launches apart.
 LAUNCHES = {kind: 0 for kind in _SPECS} | {k + "_sub": 0 for k in GATED}
+BOX_LAUNCHES = {"chunk_boxes": 0}
+
+# the box cull's margins over the reach past which a pair's terms vanish:
+# the rounding between the box test and the pair (csrc/pair_pass.cu),
+# wider for paccel, whose radius goes through rsqrtf (2 ulps)
+CULL_MARGIN = 2.0 ** -20
+CULL_MARGIN_RSQRT = 2.0 ** -18
+# kind -> its constant past which a pair's terms vanish (h^2, the exits'
+# reach); paccel's is h^2 from h
+_REACH = {"density": 0, "rho_star": 0, "viscsurf": 3, "boundary": 2,
+          "membrane": 1}
+# device -> int64 [len(RING), 2]: chunks tested and culled a kind, rows in
+# RING's order (made at the first launch with the tracer on)
+_CULL_COUNTS: dict = {}
+# device -> the f32 [n, 8] buffers the box kernel writes, the newest (and
+# largest) last: a launch uses the newest, made larger when a slab needs
+# more; older ones stay, since a captured graph may still write to them
+_BOXES: dict = {}
 
 # Pair elements ([rows x columns]) per chunk of blocks in the plain
 # versions, by device type. On the card a chunk's pair matrices may take
@@ -229,6 +269,32 @@ class PairPass:
         if self.kind == "spring":
             return 0
         return 4 * self.staged_rows * self.ccol * RING[self.kind].stages
+
+    @property
+    def culls(self) -> bool:
+        """Whether the pass's kernel takes the box cull: a ring kind whose
+        tiles hold at most 32 chunks (one lane tests a chunk); a wider
+        tile runs the unculled kernel, whose sums are the same."""
+        return self.kind in RING and self.ccol <= 32 * CHUNK
+
+    @property
+    def cull_reach(self) -> float | None:
+        """The ring kernel's box cull threshold: the f32 r2 at or above
+        which every term of this pass's pair is an exact zero (density and
+        rho*: h^2; viscsurf, boundary, membrane: their exit's reach;
+        paccel: h^2, r >= h), times 1 + ``CULL_MARGIN`` (paccel:
+        ``CULL_MARGIN_RSQRT``), rounded up to f32. None for the spring
+        pass."""
+        if self.kind == "paccel":
+            t = self.consts[0] ** 2 * (1.0 + CULL_MARGIN_RSQRT)
+        elif self.kind in _REACH:
+            t = self.consts[_REACH[self.kind]] * (1.0 + CULL_MARGIN)
+        else:
+            return None
+        v = np.float32(t)
+        if float(v) < t:
+            v = np.nextafter(v, np.float32(np.inf))
+        return float(v)
 
     def __call__(self, tables, own_pack, slab_pack):
         dev = own_pack.device.type
@@ -739,6 +805,153 @@ def _spring_list_sums(p: PairPass, tables, own, slab, scale):
 
 
 # ---------------------------------------------------------------------------
+# the box cull
+# ---------------------------------------------------------------------------
+
+# kind -> the first own-pack row of the positions its distance test reads
+# (the boundary and membrane passes: the new positions); 0 elsewhere
+_OWN_XYZ = {"boundary": 3, "membrane": 3}
+
+
+def chunk_boxes(slab, row0: int, chunk: int):
+    """Plain version of the box kernel (``pair_ring_boxes`` in
+    ``csrc/pair_pass.cu``): [ceil(width / chunk), 8] f32, row b (min x,
+    min y, min z, 0, max x, max y, max z, 0) of slab rows row0 .. row0 + 2
+    over columns b chunk .. b chunk + chunk - 1 below the slab's width."""
+    x = slab[row0:row0 + 3]
+    n = -(-x.shape[1] // chunk)
+    pad = (0, n * chunk - x.shape[1])
+    lo = torch.nn.functional.pad(x, pad, value=float("inf"))
+    hi = torch.nn.functional.pad(x, pad, value=float("-inf"))
+    lo = lo.reshape(3, n, chunk).amin(2)
+    hi = hi.reshape(3, n, chunk).amax(2)
+    zero = torch.zeros_like(lo[0])
+    return torch.stack([lo[0], lo[1], lo[2], zero, hi[0], hi[1], hi[2],
+                        zero], 1)
+
+
+def cull_chunks(p: PairPass, tables, own, slab, blocks, boxes=None):
+    """The box cull as the ring kernel makes it, for own blocks ``blocks``
+    (a 1-D int64 tensor): (keep, tested), bool [len(blocks), tiles, warps,
+    chunks] over each block's tiles (the most any of them streams), its
+    warps (``Ring.warp_rows`` consecutive rows each) and each tile's
+    ``ccol / CHUNK`` chunks. A chunk is tested where the pass culls
+    (``PairPass.culls``), its tile is listed, it starts inside the slab
+    and (gated) a live row of the warp takes the tile; kept where it is
+    tested and its box comes within ``cull_reach`` of the box of the
+    warp's live rows, or its tile does not start on a multiple of
+    ``CHUNK``, and, untested, wherever the pass does not cull. Gaps in the
+    packs' dtype, each axis's unfused, as the kernel takes them."""
+    C, W, B = CHUNK, RING[p.kind].warp_rows, p.block
+    nw, nch = B // W, p.ccol // C
+    aln, _, _, s0, cnt, ob = (t.long() for t in tables[:6])
+    slab_w, own_w = slab.shape[1], own.shape[1]
+    if boxes is None:
+        boxes = chunk_boxes(slab, _RING_ROW0.get(p.kind, 0), C)
+    dev, nb = own.device, blocks.shape[0]
+    n_t = max(int(cnt[blocks].max()) if nb else 0, 1)
+    s = torch.arange(n_t, device=dev)[None, :]
+    b3 = blocks[:, None] * 3
+    c = b3 + (s >= s0[b3 + 1]).long() + (s >= s0[b3 + 2]).long()
+    off = aln[c] + (s - s0[c]) * p.ccol                     # [nb, T]
+    ncol = torch.where(off < 0, 0, torch.clamp(slab_w - off, 0, p.ccol))
+    cc = torch.arange(nch, device=dev) * C
+    inside = (s < cnt[blocks, None])[..., None] & (cc < ncol[..., None])
+    bi = torch.clamp(torch.div(off[..., None] + cc, C, rounding_mode="floor"),
+                     0, boxes.shape[0] - 1)
+    bx = boxes[bi]                                          # [nb, T, nch, 8]
+    rows = int(tables[5][0]) + blocks[:, None] * B + torch.arange(B,
+                                                                  device=dev)
+    live = (rows >= 0) & (rows < own_w)
+    i0 = _OWN_XYZ.get(p.kind, 0)
+    xyz = own[i0:i0 + 3][:, torch.where(live, rows, 0)]     # [3, nb, B]
+    inf = torch.tensor(float("inf"), dtype=own.dtype, device=dev)
+    lo = torch.where(live, xyz, inf).reshape(3, nb, nw, W).amin(-1)
+    hi = torch.where(live, xyz, -inf).reshape(3, nb, nw, W).amax(-1)
+    g2 = None
+    for k in range(3):
+        g = torch.clamp(torch.maximum(
+            bx[..., k][:, :, None, :] - hi[k][:, None, :, None],
+            lo[k][:, None, :, None] - bx[..., 4 + k][:, :, None, :]), min=0.0)
+        g2 = g * g if g2 is None else g2 + g * g           # [nb, T, nw, nch]
+    inside = inside[:, :, None, :].expand(-1, -1, nw, -1)
+    if p.gated:
+        ng = B // p.sub
+        glo, ghi = (t.long().reshape(p.n_blocks, 3, ng)[blocks][..., None]
+                    for t in tables[6:8])                   # [nb, 3, ng, 1]
+        o = off[:, None, None, :]
+        hit = ((ghi > o) & (glo < o + p.ccol)).any(1)       # [nb, ng, T]
+        hit = hit.repeat_interleave(p.sub, dim=1) & live[..., None]
+        takes = hit.reshape(nb, nw, W, n_t).any(2)          # [nb, nw, T]
+        inside = inside & takes.permute(0, 2, 1)[..., None]
+    if not p.culls:
+        return inside, torch.zeros_like(inside)
+    aligned = (off % C == 0)[:, :, None, None]
+    keep = inside & (~(g2 >= p.cull_reach) | ~aligned)
+    return keep, inside
+
+
+def cull_counts(p: PairPass, tables, own, slab):
+    """(chunks tested, chunks culled) of one launch of the pass, summed over
+    every own block and warp as the kernel's counters count them
+    (``cull_chunks``, 256 blocks at a time)."""
+    boxes = chunk_boxes(slab, _RING_ROW0.get(p.kind, 0), CHUNK)
+    tested = culled = 0
+    for b0 in range(0, p.n_blocks, 256):
+        blocks = torch.arange(b0, min(b0 + 256, p.n_blocks),
+                              device=own.device)
+        keep, t = cull_chunks(p, tables, own, slab, blocks, boxes)
+        tested += int(t.sum())
+        culled += int((t & ~keep).sum())
+    return tested, culled
+
+
+def _cull_counter(device, kind: str):
+    """The address of ``kind``'s two device counters (chunks tested,
+    culled) on ``device``, made zero at its first use; None where none
+    exists yet and a capture is under way (a buffer made inside a capture
+    would be zeroed at every replay)."""
+    buf = _CULL_COUNTS.get(device)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            return None
+        buf = _CULL_COUNTS[device] = torch.zeros(
+            (len(RING), 2), dtype=torch.int64, device=device)
+    return buf[list(RING).index(kind)].data_ptr()
+
+
+def box_buffer(device, n: int):
+    """The box cull's buffer on ``device`` for ``n`` boxes: f32 [m, 8], m
+    >= n, whose first ``n`` rows the box kernel of a ring launch there
+    writes (the boxes of its slab). The newest buffer serves while it
+    holds ``n``; else one of ``n`` boxes and a quarter more is made and
+    kept, unless a capture is under way: a buffer made inside one stays
+    in its graph's pool and serves that launch alone."""
+    bufs = _BOXES.setdefault(device, [])
+    if bufs and bufs[-1].shape[0] >= n:
+        return bufs[-1]
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return torch.empty((n, 8), dtype=torch.float32, device=device)
+    bufs.append(torch.empty((n + n // 4, 8), dtype=torch.float32,
+                            device=device))
+    return bufs[-1]
+
+
+def cull_counters() -> dict:
+    """``pair.<kind>.chunks`` and ``pair.<kind>.culled``: the chunks the
+    ring kernels launched with the tracer on tested and culled, summed over
+    the devices (a device read), for the kinds that tested any."""
+    out = {}
+    for buf in _CULL_COUNTS.values():
+        for kind, (n, culled) in zip(RING, buf.tolist()):
+            if n:
+                for key, v in (("chunks", n), ("culled", culled)):
+                    name = f"pair.{kind}.{key}"
+                    out[name] = out.get(name, 0) + v
+    return out
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
@@ -827,15 +1040,20 @@ def check_tile_offsets(aln, label: str) -> None:
 def _launch(p: PairPass, tables, own, slab):
     out = _call(p, tables, own, slab)
     LAUNCHES[p.launch_key] += 1
+    if p.culls:
+        BOX_LAUNCHES["chunk_boxes"] += 1
     return out
 
 
 def _call(p: PairPass, tables, own, slab, entry=None):
     """Check the inputs, launch ``sph_pair_<kind>`` (or the library's
     ``entry``) on the current stream, raise on a launch error; returns the
-    output rows. Counts nothing: ``_launch`` counts the pass's own
-    launches."""
+    output rows. A ring kind's own entry point launches the box kernel on
+    the slab, into ``box_buffer``, then the ring kernel; with the tracer
+    on, the kernel also counts its chunks (``cull_counters``). Counts
+    nothing: ``_launch`` counts the pass's own launches."""
     from . import _build
+    from .. import trace
 
     _check(p, tables, own, slab)
     lib = _build.load()
@@ -846,6 +1064,14 @@ def _call(p: PairPass, tables, own, slab, entry=None):
     consts = (list(p.consts) + [0.0] * 4)[:4]
     with torch.cuda.device(own.device):
         stream = torch.cuda.current_stream(own.device).cuda_stream
+        cull = ()
+        if p.kind in RING and entry is None:
+            cull = (None, 0.0, None)
+            if p.culls:
+                boxes = box_buffer(own.device, -(-slab.shape[1] // CHUNK))
+                cull = (boxes.data_ptr(), p.cull_reach,
+                        _cull_counter(own.device, p.kind) if trace.on()
+                        else None)
         if p.kind == "spring" and entry is None:      # the list kernel
             err = lib.sph_pair_spring(
                 own.data_ptr(), own.shape[1], slab.data_ptr(), slab.shape[1],
@@ -860,7 +1086,7 @@ def _call(p: PairPass, tables, own, slab, entry=None):
                 aln.data_ptr(), s0.data_ptr(), cnt.data_ptr(), ob.data_ptr(),
                 glo, ghi, p.sub if p.gated else 0,
                 out.data_ptr(), p.n_blocks, p.block, p.ccol, *consts,
-                p.n_slots, stream,
+                p.n_slots, stream, *cull,
             )
     if err:
         raise RuntimeError(f"{p.kind} kernel launch failed: "

@@ -14,8 +14,9 @@ graphs with one traced frame, then:
   + ``period.unsort``), the median ``graph.replay`` µs, the facade's host
   ms a frame (``sim.step`` less its ``sim.sync`` children), read GB/s
   (``sim.read_bytes`` over the ``read.copy`` device seconds), the idle
-  share of the union of the marks over the pass's wall, and the idle
-  seconds by innermost open span;
+  share of the union of the marks over the pass's wall, the idle
+  seconds by innermost open span, and each ring kind's share of chunks
+  its box cull skipped (``pair.<kind>.culled`` over ``.chunks``);
 * the tracer's cost: windows of ``--seconds`` off, on, off, on, the mean
   ms a frame of each;
 * the same readings over a pass ten times as long (``long``);
@@ -77,6 +78,10 @@ def readings(snap, frames):
     host = [(x["t1"] - x["t0"] - waits.get(x["id"], 0)) / 1e6
             for x in spans if x["name"] == "sim.step"]
     copy_s = sum(ms("read.copy")) / 1e3
+    # the box cull's share of the chunks each ring kind tested
+    cull = {k.split(".")[1]: c.get(k[:-len("chunks")] + "culled", 0) / v
+            for k, v in c.items()
+            if k.startswith("pair.") and k.endswith(".chunks") and v}
     return dict(
         frames=frames,
         resort_ms_per_period=statistics.mean(resort) if resort else None,
@@ -90,6 +95,7 @@ def readings(snap, frames):
                        if copy_s else None),
         idle_share_unprofiled=s["idle_share"],
         program_idle_gaps=s["idle_gaps"],
+        culled_share=cull,
         host_ms=s["host_ms"], device_ms=s["device_ms"],
         window_s=s["window_s"], busy_s=s["busy_s"], counters=c,
         n_spans=len(spans), n_marks=len(marks))
@@ -250,7 +256,8 @@ def main(argv=None) -> int:
         r["long"] = readings(snap, len(w.arrivals))
         log(name, "long", {kk: r["long"][kk] for kk in (
             "resort_ms_per_period", "graph_launch_us", "step_host_ms",
-            "read_gb_per_s", "idle_share_unprofiled", "program_idle_gaps")})
+            "read_gb_per_s", "idle_share_unprofiled", "program_idle_gaps",
+            "culled_share")})
         if name == "worm.frame30":
             r["step90"] = step90(sim)
             log(name, "step90", r["step90"])

@@ -37,9 +37,13 @@ no CUDA event, no allocation. While it is on:
   only of tracing;
 * a **counter** adds ``n`` to its name (:func:`count`). :func:`snapshot`
   also reports the launch and capture records the program keeps anyway
-  (``ops.pair_kernels.LAUNCHES`` and ``ops.pack.LAUNCHES`` as
-  ``launches.<kind>``, ``core.graphed.CAPTURES`` as ``graph.captures`` and
-  ``graph.capture_s``), as their change since the record started.
+  (``ops.pair_kernels.LAUNCHES``, ``BOX_LAUNCHES`` and ``ops.pack.LAUNCHES``
+  as ``launches.<kind>``, ``core.graphed.CAPTURES`` as ``graph.captures``
+  and ``graph.capture_s``) and the ring kernels' device counters of the
+  box cull, which only launches made with the tracer on keep
+  (``ops.pair_kernels.cull_counters``: ``pair.<kind>.chunks`` and
+  ``pair.<kind>.culled``, a device read), as their change since the
+  record started.
 
 Nothing is written out but through :func:`snapshot`; :func:`summary`
 reduces one to the totals the CLI's ``--verbose`` prints. The module
@@ -249,8 +253,11 @@ def _program_records() -> dict:
     from .core import graphed
     from .ops import pack, pair_kernels
 
-    out = {f"launches.{k}": v for c in (pair_kernels.LAUNCHES, pack.LAUNCHES)
+    out = {f"launches.{k}": v for c in (pair_kernels.LAUNCHES,
+                                        pair_kernels.BOX_LAUNCHES,
+                                        pack.LAUNCHES)
            for k, v in c.items()}
+    out.update(pair_kernels.cull_counters())
     out["graph.captures"] = len(graphed.CAPTURES)
     out["graph.capture_s"] = sum(c["capture_s"] for c in graphed.CAPTURES)
     return out

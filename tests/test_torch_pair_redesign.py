@@ -169,12 +169,16 @@ def test_check_refuses_a_block_the_ctas_do_not_tile(ring, name):
 
 
 @pytest.mark.parametrize("name", ["fast_density", "fast_rho_star"])
-def test_check_refuses_a_sub_the_rows_do_not_divide(ring, name):
-    """The gated density kernel keeps a thread's two rows in one subgroup
-    (one window set, one tile test): a gated pass whose sub the rows a
-    thread do not divide is refused before a launch, with gate tables of
-    the right size."""
+def test_check_refuses_a_sub_the_rows_do_not_divide(ring, name,
+                                                    monkeypatch):
+    """The gated ring kernel keeps a thread's rows in one subgroup (one
+    window set, one tile test): with two rows a thread (the density
+    kernel's until the box cull's matrix gave it one), a gated pass whose
+    sub the rows a thread do not divide is refused before a launch, with
+    gate tables of the right size."""
     p, tables, own, slab = ring[name]
+    monkeypatch.setitem(pk.RING, p.kind, dataclasses.replace(
+        pk.RING[p.kind], rows=2))
     rows = pk.RING[p.kind].rows
     assert p.gated and rows == 2 and p.sub % rows == 0
     odd = dataclasses.replace(p, sub=rows - 1)
